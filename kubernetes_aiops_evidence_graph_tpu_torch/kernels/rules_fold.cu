@@ -1,0 +1,191 @@
+// rules_fold.cu — the evidence fold and the rules tail of the RCA scoring
+// pass as ONE kernel for Hopper (sm_90a).
+//
+// Replaces, on the JAX package's path:
+//   * experiments/pallas_rules.py::_rules_kernel (the Pallas rules tail:
+//     conditions -> rules -> first-maximal top-1), and
+//   * rca/tpu_backend.py::_aggregate (the XLA evidence fold that feeds it:
+//     gather of features over the [Pi, W] slot table, masked sum, and the
+//     POD_PROBLEM pair one-hot contraction down to per_row_max),
+// with the comparisons of rca/tpu_backend.py::finish_scores (`> 0`,
+// `>= NETWORK_ERRORS_THRESHOLD`, `>= MULTIPLE_PODS_THRESHOLD`,
+// NO_RECENT_DEPLOY = !(HAS_RECENT_DEPLOY > 0)).
+//
+// Design (one thread block per padded incident row i, 64 threads):
+//   * threads 0..47 own one feature column each and walk the LIVE slots
+//     w < ev_cnt[i] in slot order, so the 48 threads of a slot read one
+//     contiguous 192-byte feature row and nothing past the live prefix is
+//     gathered;
+//   * the thread owning F.POD_PROBLEM also adds each slot's value into a
+//     [pair_width] histogram in shared memory, in slot order (ids outside
+//     [0, pair_width) are the "no node" sentinel and drop out);
+//   * warp 0 then takes the max of the histogram (per_row_max), evaluates
+//     one condition per lane from the condition table, ANDs conditions into
+//     rules with a ballot, and reduces the first-maximal rule score with
+//     shuffles.
+// No floating-point atomics anywhere and every sum runs in a fixed order,
+// so results are bit-identical from run to run.
+//
+// Bound on an H100: bytes. Per pass the function must move each distinct
+// feature row the live slots gather (192 B a row; incidents sharing an
+// entity share its row), the index and pair id of each live slot (8 B),
+// ev_cnt and chain, and its outputs (rules_fold.py::bound_bytes); the
+// arithmetic is a few adds per gathered value. This first version does nothing to hide
+// the latency of the dependent index->row loads beyond running all Pi
+// rows' blocks at once; prefetching slots with cp.async/TMA and packing
+// several rows per block is later work.
+//
+// Plain C interface for ctypes: rules_fold_launch returns the
+// cudaGetLastError() code after the launch (0 = success).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kDim = 48;          // graph/schema.DIM
+constexpr int kThreads = 64;
+constexpr int kPerRowMaxBit = kDim;  // condition-mask bit for per_row_max
+
+// NaN-propagating max (jnp.max semantics)
+__device__ __forceinline__ float nan_max(float a, float b) {
+    return (isnan(a) || a >= b) ? a : b;
+}
+
+__global__ void __launch_bounds__(kThreads) rules_fold_kernel(
+    const float* __restrict__ features, int pn,
+    const int* __restrict__ ev_idx, const int* __restrict__ ev_cnt,
+    const int* __restrict__ ev_pair, const float* __restrict__ chain,
+    int width, int pair_width, int pod_problem,
+    const unsigned long long* __restrict__ cond_mask,
+    const float* __restrict__ cond_thresh, const int* __restrict__ cond_op,
+    int n_conds,
+    const unsigned int* __restrict__ rule_mask,
+    const float* __restrict__ rule_score, const float* __restrict__ rule_conf,
+    int n_rules, float unknown_conf, float unknown_score,
+    uint8_t* __restrict__ conds_out, uint8_t* __restrict__ matched_out,
+    float* __restrict__ scores_out, int* __restrict__ top_idx_out,
+    uint8_t* __restrict__ any_out, float* __restrict__ top_conf_out,
+    float* __restrict__ top_score_out) {
+    extern __shared__ float hist[];          // [pair_width]
+    __shared__ float counts[kDim];
+
+    const int i = blockIdx.x;
+    const int t = threadIdx.x;
+    int cnt = ev_cnt[i];
+    cnt = cnt < 0 ? 0 : (cnt > width ? width : cnt);
+
+    for (int r = t; r < pair_width; r += kThreads) hist[r] = 0.0f;
+    __syncthreads();
+
+    if (t < kDim) {
+        const int* idx = ev_idx + (size_t)i * width;
+        const int* slot = ev_pair + (size_t)i * width;
+        const bool pair_col = (t == pod_problem);
+        float acc = 0.0f;
+        for (int w = 0; w < cnt; ++w) {
+            const int n = idx[w];
+            if ((unsigned)n >= (unsigned)pn) continue;   // invalid id: no row
+            const float v = features[(size_t)n * kDim + t];
+            acc += v;
+            if (pair_col) {
+                const int s = slot[w];
+                if (s >= 0 && s < pair_width) hist[s] += v;
+            }
+        }
+        const float c = chain[i];
+        counts[t] = acc + (c > 0.0f ? 0.0f : c);   // min(chain, 0), NaN kept
+    }
+    __syncthreads();
+
+    if (t >= 32) return;
+    const unsigned full = 0xffffffffu;
+
+    // per_row_max = max over the pair histogram
+    float prm = -INFINITY;
+    for (int r = t; r < pair_width; r += 32) prm = nan_max(hist[r], prm);
+    for (int off = 16; off > 0; off >>= 1)
+        prm = nan_max(__shfl_xor_sync(full, prm, off), prm);
+
+    // one condition per lane: the selected counts summed in ascending
+    // feature order (finish_scores' left-to-right sums), then compared
+    bool cv = false;
+    if (t < n_conds) {
+        const unsigned long long m = cond_mask[t];
+        float s = 0.0f;
+        bool first = true;
+        for (int f = 0; f <= kDim; ++f) {
+            if (!((m >> f) & 1ull)) continue;
+            const float x = (f == kPerRowMaxBit) ? prm : counts[f];
+            s = first ? x : s + x;
+            first = false;
+        }
+        const int op = cond_op[t];
+        bool r = (op & 1) ? (s >= cond_thresh[t]) : (s > cond_thresh[t]);
+        if (op & 2) r = !r;
+        cv = r;
+        conds_out[(size_t)i * n_conds + t] = cv ? 1 : 0;
+    }
+    const unsigned bits = __ballot_sync(full, cv);
+
+    // one rule per lane: matched when every required condition holds
+    bool mv = false;
+    float sc = 0.0f;
+    if (t < n_rules) {
+        const unsigned rm = rule_mask[t];
+        mv = (bits & rm) == rm;
+        sc = mv ? rule_score[t] : 0.0f;
+        matched_out[(size_t)i * n_rules + t] = mv ? 1 : 0;
+        scores_out[(size_t)i * n_rules + t] = sc;
+    }
+    const bool any = __ballot_sync(full, mv) != 0u;
+
+    // first-maximal score (argmax tie-break: the lowest rule index)
+    float best = (t < n_rules) ? sc : -INFINITY;
+    int bi = t;
+    for (int off = 16; off > 0; off >>= 1) {
+        const float ob = __shfl_down_sync(full, best, off);
+        const int oi = __shfl_down_sync(full, bi, off);
+        if (ob > best || (ob == best && oi < bi)) {
+            best = ob;
+            bi = oi;
+        }
+    }
+    if (t == 0) {
+        top_idx_out[i] = bi;
+        any_out[i] = any ? 1 : 0;
+        top_score_out[i] = any ? best : unknown_score;
+        top_conf_out[i] = any ? rule_conf[bi] : unknown_conf;
+    }
+}
+
+}  // namespace
+
+extern "C" int rules_fold_launch(
+    const void* features, int pn, const void* ev_idx, const void* ev_cnt,
+    const void* ev_pair, const void* chain, int pi, int width, int pair_width,
+    int pod_problem, const void* cond_mask, const void* cond_thresh,
+    const void* cond_op, int n_conds, const void* rule_mask,
+    const void* rule_score, const void* rule_conf, int n_rules,
+    float unknown_conf, float unknown_score, void* conds_out,
+    void* matched_out, void* scores_out, void* top_idx_out, void* any_out,
+    void* top_conf_out, void* top_score_out, void* stream) {
+    if (pi <= 0) return (int)cudaSuccess;
+    const size_t smem = (size_t)pair_width * sizeof(float);
+    rules_fold_kernel<<<pi, kThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)features, pn, (const int*)ev_idx, (const int*)ev_cnt,
+        (const int*)ev_pair, (const float*)chain, width, pair_width,
+        pod_problem, (const unsigned long long*)cond_mask,
+        (const float*)cond_thresh, (const int*)cond_op, n_conds,
+        (const unsigned int*)rule_mask, (const float*)rule_score,
+        (const float*)rule_conf, n_rules, unknown_conf, unknown_score,
+        (uint8_t*)conds_out, (uint8_t*)matched_out, (float*)scores_out,
+        (int*)top_idx_out, (uint8_t*)any_out, (float*)top_conf_out,
+        (float*)top_score_out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" const char* rules_fold_error_string(int code) {
+    return cudaGetErrorString((cudaError_t)code);
+}
