@@ -42,6 +42,14 @@ class Settings:
     # bit-identical at every depth.
     serve_pipeline_depth: int = 2
 
+    # --- learned RCA (rca/gnn_backend.py, rca/gnn_streaming.py) ---
+    # a .npz checkpoint (flat keys, see rca/gnn.flat_params); "" = the one
+    # shipped in the package (checkpoints/gnn.npz)
+    gnn_checkpoint: str = ""
+    # "" = float32 message passing; "bfloat16" casts the matmul operands
+    # (accumulation stays float32)
+    gnn_compute_dtype: str = ""
+
     # --- snapshot padding ladders (graph/snapshot.py; rungs in ladders.py)
     node_bucket_sizes: tuple = _ladders.NODE_BUCKET_SIZES
     incident_bucket_sizes: tuple = _ladders.INCIDENT_BUCKET_SIZES

@@ -21,7 +21,7 @@ from pathlib import Path
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("rules_fold",)
+SOURCES = ("rules_fold", "gms")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,207 @@
+"""The relation-bucketed message pass of the learned RCA path.
+
+``gather_matmul_segment`` computes, for a relation-bucketed edge layout
+(relation ``r`` owns the slice ``[rel_offsets[r], rel_offsets[r+1])``),
+``out[dst[e]] += (h[src[e]] * mask[e]) @ w_rel[r]`` with every ``out[d]``
+summed in ascending edge index from zero: what the JAX package's
+``ops/pallas_segment.py::_gms_kernel`` (and its XLA twin
+``ops/segment.py::gather_matmul_segment``) computes.
+
+On a CUDA tensor it launches ``gms.cu`` (a tile kernel that writes each
+live edge's message row, then an ordered per-destination walk over a
+dst-CSR; no floating-point atomics, so the result is the same bit for bit
+on every run). On a CPU tensor it runs the plain version,
+``ops/segment.gather_matmul_segment``, which the tests hold against the
+JAX package and ``chip_smoke.py`` holds the kernel against on the card.
+There is no fallback from one to the other.
+
+The dst-CSR (:func:`make_plan`) depends only on the layout, so a forward
+builds it once and passes it to each of its L layers.
+
+Bound on an H100 at the learned path's widths (H = K = 64, float32):
+operations, ``2 * live * H * K`` over the float32 rate; the bytes it must
+move (:func:`bound`) take about a third of that time.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops.segment import as_dtype
+from ..ops.segment import gather_matmul_segment as gather_matmul_segment_reference
+
+launches = 0
+"""Kernel launches so far (one per message pass); a run resets it to show
+that its path went through the kernel. Plain-version calls never count."""
+
+_lib: ctypes.CDLL | None = None
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from . import _build
+        lib = _build.load("gms")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gms_launch.argtypes = [
+            i, p, i, i, p, i, i,            # dtype, h, n_h, H, w_rel, R, K
+            p, p, p, i,                     # src, mask, offsets, edges
+            p, p, i, p, p, p]               # perm, rowptr, N, msg, out, stream
+        lib.gms_launch.restype = ctypes.c_int
+        lib.gms_error_string.argtypes = [ctypes.c_int]
+        lib.gms_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+@dataclass(frozen=True)
+class GmsPlan:
+    """The dst-CSR of one edge layout: ``perm[rowptr[d]:rowptr[d+1]]``
+    are the live edges (mask != 0, inside a relation slice) with
+    destination ``d``, in ascending edge index."""
+    rel_offsets: tuple[int, ...]
+    num_segments: int
+    offsets: torch.Tensor     # [R+1] int32
+    perm: torch.Tensor        # [live] int32 edge indices
+    rowptr: torch.Tensor      # [N+1] int32
+
+
+def _check_offsets(offs: tuple[int, ...], num_edges: int) -> None:
+    if len(offs) < 1 or offs[0] < 0 or offs[-1] > num_edges or any(
+            b < a for a, b in zip(offs[:-1], offs[1:])):
+        raise ValueError(f"rel_offsets {offs} must be non-decreasing within "
+                         f"[0, {num_edges}]")
+
+
+def make_plan(dst: torch.Tensor, mask: torch.Tensor,
+              rel_offsets: tuple[int, ...], num_segments: int) -> GmsPlan:
+    """The dst-CSR of a layout, built on the tensors' device by a STABLE
+    sort of dst over the live edges (edges of one destination keep their
+    ascending index). Edges outside every slice, with mask 0 or with a
+    destination outside ``[0, num_segments)`` are left out."""
+    offs = tuple(int(o) for o in rel_offsets)
+    _check_offsets(offs, int(dst.shape[0]))
+    dev = dst.device
+    lo, hi = offs[0], offs[-1]
+    if hi > lo:
+        d = dst[lo:hi].long()
+        valid = (mask[lo:hi] != 0) & (d >= 0) & (d < num_segments)
+        key = torch.where(valid, d, torch.full_like(d, num_segments))
+        skey, perm = torch.sort(key, stable=True)
+        rowptr = torch.searchsorted(
+            skey, torch.arange(num_segments + 1, device=dev))
+        perm = (perm + lo).to(torch.int32)
+        rowptr = rowptr.to(torch.int32)
+    else:
+        perm = torch.zeros(0, dtype=torch.int32, device=dev)
+        rowptr = torch.zeros(num_segments + 1, dtype=torch.int32, device=dev)
+    return GmsPlan(offs, int(num_segments),
+                   torch.tensor(offs, dtype=torch.int32, device=dev),
+                   perm.contiguous(), rowptr.contiguous())
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, h on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+
+
+def gather_matmul_segment(
+    h: torch.Tensor,              # [N, H] float32 node table
+    w_rel: torch.Tensor,          # [R, H, K] float32 per-relation transforms
+    src: torch.Tensor,            # [E] int32
+    dst: torch.Tensor,            # [E] int32
+    mask: torch.Tensor,           # [E] float32, 1.0 live / 0.0 padding
+    rel_offsets: tuple[int, ...],  # [R+1] slice bounds into E
+    num_segments: int,
+    *,
+    compute_dtype: "torch.dtype | str | None" = None,
+    plan: GmsPlan | None = None,
+) -> torch.Tensor:
+    """One message pass → ``[num_segments, K]`` float32.
+
+    ``compute_dtype`` ("bfloat16") casts ``h``, ``w_rel`` and ``mask``
+    once before the gathers; products and sums stay float32. ``plan`` is
+    the layout's dst-CSR (:func:`make_plan`), built here when not given.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream (or raise)."""
+    global launches
+    dev = h.device
+    if dev.type == "cpu":
+        return gather_matmul_segment_reference(
+            h, w_rel, src, dst, mask, rel_offsets, num_segments,
+            compute_dtype=compute_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"gather_matmul_segment runs on cuda or cpu, not {dev}")
+    n_h, hid = h.shape
+    n_rel, _, k_out = w_rel.shape
+    e = int(src.shape[0])
+    offs = tuple(int(o) for o in rel_offsets)
+    _check("h", h, torch.float32, (n_h, hid), dev)
+    _check("w_rel", w_rel, torch.float32, (n_rel, hid, k_out), dev)
+    _check("src", src, torch.int32, (e,), dev)
+    _check("dst", dst, torch.int32, (e,), dev)
+    _check("mask", mask, torch.float32, (e,), dev)
+    if len(offs) != n_rel + 1:
+        raise ValueError(f"rel_offsets has {len(offs)} entries for {n_rel} "
+                         "relations")
+    _check_offsets(offs, e)
+    cdt = torch.float32 if compute_dtype is None else as_dtype(compute_dtype)
+    if cdt not in _DTYPE_CODE:
+        raise TypeError(f"compute dtype {cdt} not supported (float32, "
+                        "bfloat16)")
+    if plan is None:
+        plan = make_plan(dst, mask, offs, num_segments)
+    elif plan.rel_offsets != offs or plan.num_segments != num_segments:
+        raise ValueError("plan was built for another layout")
+    h_c = h.to(cdt).contiguous()
+    w_c = w_rel.to(cdt).contiguous()
+    m_c = mask.to(cdt).contiguous()
+    src, dst = src.contiguous(), dst.contiguous()
+    n_edges = offs[-1]
+    msg = torch.empty((n_edges, k_out), dtype=torch.float32, device=dev)
+    out = torch.empty((num_segments, k_out), dtype=torch.float32, device=dev)
+    if num_segments == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gms_launch(
+            _DTYPE_CODE[cdt], h_c.data_ptr(), n_h, hid, w_c.data_ptr(),
+            n_rel, k_out, src.data_ptr(), m_c.data_ptr(),
+            plan.offsets.data_ptr(), n_edges, plan.perm.data_ptr(),
+            plan.rowptr.data_ptr(), num_segments, msg.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("gms launch failed: "
+                           + lib.gms_error_string(rc).decode())
+    launches += 1
+    return out
+
+
+def bound(src: np.ndarray, mask: np.ndarray, rel_offsets: tuple[int, ...],
+          hid: int, k_out: int, num_segments: int,
+          operand_bytes: int = 4) -> tuple[int, int]:
+    """(bytes, operations) one message pass must move and do at least, for
+    this layout's data: each distinct source row the live edges gather
+    once, 12 B per live edge (src, dst, mask), ``w_rel``, and the
+    ``[N, K]`` float32 output written once; ``2 * live * H * K`` operations
+    (a multiply and an add per weight a live edge applies)."""
+    offs = tuple(int(o) for o in rel_offsets)
+    lo, hi = offs[0], offs[-1]
+    live = np.asarray(mask[lo:hi]) != 0
+    rows = np.unique(np.asarray(src[lo:hi])[live]).size
+    n_live = int(live.sum())
+    n_rel = len(offs) - 1
+    nbytes = (rows * hid * operand_bytes + n_live * 12
+              + n_rel * hid * k_out * operand_bytes + num_segments * k_out * 4)
+    return nbytes, 2 * n_live * hid * k_out

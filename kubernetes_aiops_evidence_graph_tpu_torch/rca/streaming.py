@@ -100,14 +100,17 @@ def _tick(features, ints, f_rows, ev_idx, ev_cnt, ev_pair, chain,
     return rules_fold(features, ev_idx, ev_cnt, ev_pair, chain, pair_width)
 
 
-def _delta_pack(slab: torch.Tensor, li: int, pk: int, dim: int
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Split one staged int32 slab into the tick's ``(ints, f_rows)`` on
-    the device: a slice, and the feature rows' bits reinterpreted as
-    float32 (bit-exact, no copy)."""
+def _delta_pack(slab: torch.Tensor, li: int, pk: int, dim: int, gi: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor, "torch.Tensor | None"]:
+    """Split one staged int32 slab into the tick's ``(ints, f_rows,
+    extra)`` on the device: slices, and the feature rows' bits
+    reinterpreted as float32 (bit-exact, no copy). ``extra`` is the
+    ``gi``-long payload a subclass folded in after the feature rows
+    (None when ``gi`` is 0)."""
     ints = slab[:li]
     rows = slab[li:li + pk * dim].view(torch.float32).view(pk, dim)
-    return ints, rows
+    extra = slab[li + pk * dim:li + pk * dim + gi] if gi else None
+    return ints, rows, extra
 
 
 class FeatureStage:
@@ -146,6 +149,10 @@ class FeatureStage:
 
     def __len__(self) -> int:
         return self._n
+
+    def keys(self) -> list[int]:
+        """Staged node rows, in slot order (first staging order)."""
+        return self._idx[:self._n].tolist()
 
     def drain_into(self, idx_out: np.ndarray, rows_out: np.ndarray,
                    sentinel: int) -> int:
@@ -241,6 +248,9 @@ class StreamingScorer:
         self._stage_pool = _SlabPool(self.pipeline_depth + 3,
                                      pin=self.device.type == "cuda")
         self._inflight: collections.deque[_Tick] = collections.deque()
+        # the on-device slice of a subclass's extra payload when it rode
+        # this tick's staged slab (set by dispatch, read by the subclass)
+        self._staged_gnn_dev: "torch.Tensor | None" = None
         self._coalesce_bound = _DELTA_BUCKETS[-1]
         self.coalesced_ticks = 0
         self.deferred_fetches = 0
@@ -828,12 +838,19 @@ class StreamingScorer:
             r_ev[:k], r_cnt[:k], r_pair[:k] = ev_idx, ev_cnt, ev_pair
         return r_idx, r_ev, r_cnt, r_pair
 
+    def _staged_extra_ints(self) -> "np.ndarray | None":
+        """Extra int32 payload a subclass wants folded into the staged slab
+        (the GNN scorer rides its packed aux/edge delta on the base slab's
+        transfer). The base scorer stages nothing extra."""
+        return None
+
     def _staged_delta(self):
         """Drain pending deltas into ONE int32 staging slab laid out as
-        ``[f_idx | r_idx | r_cnt | r_ev | r_pair | f_rows as int32]`` —
-        the packed integer deltas followed by the feature rows' bits — so a
-        tick pays a single host→device copy. Returns ``(slab, f_rows view,
-        li, pk, rk, f_live, r_live)``."""
+        ``[f_idx | r_idx | r_cnt | r_ev | r_pair | f_rows as int32 |
+        extra]`` — the packed integer deltas, the feature rows' bits and a
+        subclass's extra payload (:meth:`_staged_extra_ints`) — so a tick
+        pays a single host→device copy. Returns ``(slab, f_rows view, li,
+        pk, rk, gi, f_live, r_live)``."""
         stage = self._pending_feat
         pn = self.snapshot.padded_nodes
         dim = self.snapshot.features.shape[1]
@@ -843,7 +860,9 @@ class StreamingScorer:
         r_idx, r_ev, r_cnt, r_pair = self._pending_row_delta()
         rk = len(r_idx)
         li = pk + 2 * rk + 2 * rk * width
-        slab = self._stage_pool.acquire(li + pk * dim)
+        extra = self._staged_extra_ints()
+        gi = 0 if extra is None else int(extra.size)
+        slab = self._stage_pool.acquire(li + pk * dim + gi)
         buf = slab.view
         buf[pk:pk + rk] = r_idx
         buf[pk + rk:pk + 2 * rk] = r_cnt
@@ -852,18 +871,21 @@ class StreamingScorer:
         buf[off + rk * width:li] = r_pair.ravel()
         f_rows = buf[li:li + pk * dim].view(np.float32).reshape(pk, dim)
         f_live = stage.drain_into(buf[:pk], f_rows, pn)
-        return slab, f_rows, li, pk, rk, f_live, r_live
+        if gi:
+            buf[li + pk * dim:] = extra
+        return slab, f_rows, li, pk, rk, gi, f_live, r_live
 
     def dispatch(self) -> tuple:
         """Flush pending deltas and enqueue one scoring pass; returns the
         seven device outputs without a host fetch."""
-        slab, f_rows, li, pk, rk, f_live, r_live = self._staged_delta()
+        slab, f_rows, li, pk, rk, gi, f_live, r_live = self._staged_delta()
         self._screen_delta(f_rows[:f_live])
         dim = self.snapshot.features.shape[1]
         with self._on_stream():
             slab_dev = slab.host.to(self.device, non_blocking=True)
             slab.done = self._record()
-            ints, rows = _delta_pack(slab_dev, li, pk, dim)
+            ints, rows, self._staged_gnn_dev = _delta_pack(slab_dev, li, pk,
+                                                           dim, gi)
             out = _tick(self._features_dev, ints, rows, self._ev_idx_dev,
                         self._ev_cnt_dev, self._pair_dev, self._chain0,
                         self.pair_width, pk, rk, self.width, f_live, r_live)
@@ -890,6 +912,12 @@ class StreamingScorer:
     # tick — the queue never grows past depth and no delta is dropped.
     # Only when the merged delta would overflow the ladder's top bucket
     # does the executor block for a slot (counted as stall time).
+
+    def _tick_handles(self, out: tuple) -> _Tick:
+        """What the in-flight queue holds for one dispatched tick: the
+        outputs a fetch reads, and the event that marks them complete.
+        A subclass whose tick produces other outputs points this at them."""
+        return _Tick(out, self._record())
 
     def _tick_ready(self, handles: _Tick) -> bool:
         return handles.done is None or handles.done.query()
@@ -936,7 +964,7 @@ class StreamingScorer:
             self.stall_seconds += time.perf_counter() - t0
             self.deferred_fetches += 1
         out = self.dispatch()
-        self._inflight.append(_Tick(out, self._record()))
+        self._inflight.append(self._tick_handles(out))
         return {"dispatched": True, "coalesced": False,
                 "inflight": len(self._inflight), "pending": 0}
 
@@ -1017,7 +1045,7 @@ class StreamingScorer:
                  "newest_fetch": False}
         queue_wait_s = self._drain_queue_wait()
         t1 = time.perf_counter()
-        handles = _Tick(self.dispatch(), self._record())
+        handles = self._tick_handles(self.dispatch())
         self._supersede_inflight()
         dispatch_s = time.perf_counter() - t1
         return self._fetch_verdicts(handles, stats, queue_wait_s, dispatch_s)

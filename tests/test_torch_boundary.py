@@ -1,5 +1,5 @@
-"""Boundary of the PyTorch port: it imports no JAX, no pydantic, no yaml and
-nothing of the JAX package; its entry points default to CUDA and raise
+"""Boundary of the PyTorch port: it imports no JAX, no orbax, no pydantic, no
+yaml and nothing of the JAX package; its entry points default to CUDA and raise
 without it; what it copied from the JAX package (ladders, query library,
 data models) still agrees with the original."""
 import ast
@@ -17,7 +17,7 @@ import yaml
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "kubernetes_aiops_evidence_graph_tpu_torch"
 JAX_PKG = "kubernetes_aiops_evidence_graph_tpu"
-FORBIDDEN = ("jax", "jaxlib", "pydantic", "yaml")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "pydantic", "yaml")
 
 # one intra-op thread: these tensors are small, and the suite runs
 # several pytest workers side by side on the host's cores
@@ -28,7 +28,7 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
-def test_every_port_module_imports_without_jax_pydantic_yaml():
+def test_every_port_module_imports_without_jax_orbax_pydantic_yaml():
     code = (
         "import sys, importlib, pkgutil\n"
         f"for m in {FORBIDDEN!r}:\n"
@@ -71,6 +71,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from kubernetes_aiops_evidence_graph_tpu_torch.rca import get_backend
     from kubernetes_aiops_evidence_graph_tpu_torch.rca.cuda_backend import (
         CudaRcaBackend)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_backend import (
+        GnnRcaBackend)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
+        GnnStreamingScorer)
     from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
         StreamingScorer)
 
@@ -85,11 +89,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         get_backend("tpu")
     with pytest.raises(RuntimeError):
         StreamingScorer(EvidenceGraphStore())
+    with pytest.raises(RuntimeError):
+        GnnRcaBackend()
+    with pytest.raises(RuntimeError):
+        get_backend("gnn")
+    with pytest.raises(RuntimeError):
+        GnnStreamingScorer(EvidenceGraphStore())
     with pytest.raises(ValueError):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")
     assert CudaRcaBackend("cpu").device.type == "cpu"
     assert get_backend("tpu", device="cpu").name == "tpu"
+    assert GnnRcaBackend(device="cpu").params["embed_w"].device.type == "cpu"
 
 
 def test_kernel_wrapper_takes_plain_version_only_for_cpu_tensors():

@@ -3,6 +3,7 @@ version) against the JAX package's StreamingScorer on the same seeded
 churn script, and against itself: bit-identical at pipeline depths 1/2/4
 and equal to a fresh rebuild after full-mix churn, growth and rebuilds."""
 import importlib
+import uuid
 
 import numpy as np
 import pytest
@@ -34,6 +35,10 @@ SMALL = dict(node_bucket_sizes=(512, 2048),
 
 def _world(pkg, settings, seed=13, num_pods=150,
            scenarios=("crashloop_deploy", "oom", "network")):
+    """A seeded world with its injected incidents' ids fixed from the seed:
+    a GNN mirror's free-list order after a node-removal cascade follows the
+    iteration order of a set of edge keys, which name incidents, so both
+    packages must see the same ids."""
     col = importlib.import_module(pkg + ".collectors")
     gr = importlib.import_module(pkg + ".graph")
     ts = importlib.import_module(pkg + ".graph.topology_sync")
@@ -45,7 +50,8 @@ def _world(pkg, settings, seed=13, num_pods=150,
     keys = sorted(cluster.deployments)
     incidents = [sim.inject(cluster, name, keys[i * 5 % len(keys)], rng)
                  for i, name in enumerate(scenarios)]
-    for inc in incidents:
+    for i, inc in enumerate(incidents):
+        inc.id = uuid.UUID(int=seed * 1000 + i + 1)
         builder.ingest(inc, col.collect_all(
             inc, col.default_collectors(cluster, settings), parallel=False))
     return cluster, builder, incidents
