@@ -5,7 +5,9 @@
 
 Drives ``kubernetes_aiops_evidence_graph_tpu_torch`` on the card, both RCA
 paths: the rules path (``rca_backend="tpu"``, kernel ``rules_fold``) and
-the learned path (``rca_backend="gnn"``, kernel ``gms``):
+the learned path (``rca_backend="gnn"``, kernel ``gms``, and the serving
+tick ``fused_tick`` with its two entry points ``fused_gnn_tick`` and
+``fused_gnn_tick_dma`` behind the scorer's fused and streamed tiers):
 
 1. requires CUDA (exits non-zero without it) and prints the card's name
    and power limit as nvidia-smi reports them;
@@ -35,16 +37,30 @@ the learned path (``rca_backend="gnn"``, kernel ``gms``):
    argmax equal wherever the plain version's top two logits differ by
    more than 1e-4 (the rest are counted); the GNN's top-1 agreement with
    the CPU rules oracle is printed for information;
-7. config 4, both backends: 2,000 full-mix churn events on a
-   10,000-pod cluster with 100 incidents, one ``dispatch()`` per 100-event
-   tick and one ``rescore()`` at the end (bench.py's streaming loop); the
+7. both ``fused_tick`` entry points against their plain versions on a
+   CPU copy, with the shipped weights: repeated and out-of-range delta
+   entries with zero-width and all-padding slices, every slice padding,
+   an empty delta; float32, bf16 operands, node blocks 64 and 2048 (equal
+   bit for bit), bf16 and int8 feature tables. Mirrors equal; logits,
+   probs and activations within rtol 1e-5 / atol 1e-5 (bf16 operands
+   0.05) with equal argmax; a quant table also within 1e-5 of the
+   composed forward on the dequantized table and within 0.05 (bf16) / 0.1
+   (int8) of the float32 table's probs; two launches ``torch.equal``;
+8. config 4: 2,000 full-mix churn events on a 10,000-pod cluster with
+   100 incidents, one ``dispatch()`` per 100-event tick and one
+   ``rescore()`` at the end (bench.py's streaming loop), through the
+   rules path and through the learned path once per tier (composed,
+   fused, streamed, streamed on the int8 table; settings
+   ``gnn_fused_tick`` / ``gnn_tick_dma`` / ``gnn_feature_quant``); the
    incremental state must equal a fresh scorer rebuilt from the same
    store (rules: every output exactly; learned: top-1, probs within
-   rtol 1e-4 / atol 1e-5), and each kernel must equal its plain version
-   on the resident tensors after the first tick and after the churn; the
-   rules run then adds 500 events through ``tick_async`` +
-   ``serve(newest=True)``;
-8. prints one ``{"kernels": [...]}`` line with each kernel's launches on
+   rtol 1e-4 / atol 1e-5), the tier's kernel must have launched once a
+   tick, and the kernels must equal their plain versions on the resident
+   state (config 4's resident shape, Pn 65,536) after the first tick and
+   after the churn, as in 7; each tier's tick is then timed beside the
+   composed tick at the same shape; the rules run adds 500 events
+   through ``tick_async`` + ``serve(newest=True)``;
+9. prints one ``{"kernels": [...]}`` line with each kernel's launches on
    the main paths, its time, the plain version's time and its bound, then
    the nvidia-smi line, then ``{"ok": true, "device": {...}}`` last.
 
@@ -59,6 +75,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -264,13 +281,30 @@ def kernel_timing(args, pair_width: int) -> dict:
 def kept_counts():
     """Launches inside are comparisons, not the path's: restore the
     counts afterwards."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import fused_tick as fk
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
-    saved = gms.launches, rf.launches
+    saved = gms.launches, rf.launches, fk.launches, fk.dma_launches
     try:
         yield
     finally:
-        gms.launches, rf.launches = saved
+        gms.launches, rf.launches, fk.launches, fk.dma_launches = saved
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, just before a path runs."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import fused_tick as fk
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
+    gms.launches = rf.launches = fk.launches = fk.dma_launches = 0
+
+
+def read_counts() -> dict:
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import fused_tick as fk
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
+    return {"rules_fold": rf.launches, "gms": gms.launches,
+            "fused_tick": fk.launches, "fused_tick_dma": fk.dma_launches}
 
 
 @contextlib.contextmanager
@@ -421,7 +455,7 @@ def run_learned_config3(snapshot, oracle: dict, dev) -> dict:
 
     backend = GnnRcaBackend()
     layers = len(backend.params["layers"])
-    gms.launches = rf.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     raw = backend.score_snapshot(snapshot)
     results = backend.results(raw=raw)
@@ -509,23 +543,35 @@ def same_verdicts(mine: dict, ref: dict, what: str) -> int:
     return len(a)
 
 
-def same_learned_verdicts(mine: dict, ref: dict, what: str) -> int:
+def same_learned_verdicts(mine: dict, ref: dict, what: str,
+                          quant_tol: "float | None" = None) -> tuple[int, int]:
     """Top-1 equal and probs within rtol 1e-4 / atol 1e-5 (slot reuse
-    orders a destination's sum unlike a fresh layout), by incident id."""
+    orders a destination's sum unlike a fresh layout), by incident id.
+
+    A quantized feature table (``quant_tol``) keeps the scale of its last
+    mirror build and quantizes later rows against it, while a fresh
+    rebuild derives the scale anew: there probs are held within the tier's
+    tolerance, and top-1 wherever the fresh rebuild's top two probs differ
+    by more than twice it. Returns (incidents, near-ties not held)."""
     a = {iid: i for i, iid in enumerate(mine["incident_ids"])}
     b = {iid: i for i, iid in enumerate(ref["incident_ids"])}
     if a.keys() != b.keys():
         raise AssertionError(f"{what}: live incident sets differ")
     ia, ib = [a[i] for i in a], [b[i] for i in a]
-    if not np.array_equal(mine["top_rule_index"][ia],
-                          ref["top_rule_index"][ib]):
+    p, q = mine["probs"][ia], ref["probs"][ib]
+    held = np.ones(len(ia), bool)
+    if quant_tol is not None:
+        top2 = -np.sort(-q, axis=-1)[:, :2]
+        held = top2[:, 0] - top2[:, 1] > 2 * quant_tol
+    if not np.array_equal(mine["top_rule_index"][ia][held],
+                          ref["top_rule_index"][ib][held]):
         raise AssertionError(f"{what}: top-1 differs from a fresh rebuild")
-    if not np.allclose(mine["probs"][ia], ref["probs"][ib],
-                       rtol=1e-4, atol=1e-5):
-        d = float(np.abs(mine["probs"][ia] - ref["probs"][ib]).max())
+    ok = (np.abs(p - q).max() < quant_tol if quant_tol is not None
+          else np.allclose(p, q, rtol=1e-4, atol=1e-5))
+    if not ok:
         raise AssertionError(f"{what}: probs differ from a fresh rebuild "
-                             f"(max |d| {d})")
-    return len(a)
+                             f"(max |d| {float(np.abs(p - q).max())})")
+    return len(a), int((~held).sum())
 
 
 def resident_kernel_check(scorer, what: str) -> tuple[tuple, float]:
@@ -637,7 +683,7 @@ def run_streaming(num_pods: int = 10_000, num_incidents: int = 100,
         incident_ids=tuple(builder.store.incident_ids())))
 
     errs = []
-    rf.launches = gms.launches = 0
+    reset_counts()
     inc_res, eps, tick_ms, ticks = churn_ticks(
         scorer, cluster, builder, stream, batch_size,
         lambda s: errs.append(resident_kernel_check(
@@ -686,21 +732,354 @@ def run_streaming(num_pods: int = 10_000, num_incidents: int = 100,
             max(errs + [err]))
 
 
-def run_streaming_learned(num_pods: int = 10_000, num_incidents: int = 100,
-                          events: int = 2000, batch_size: int = 100,
-                          seed: int = 0) -> dict:
-    """Config 4, learned (bench.py's streaming loop with backend="gnn"):
-    GnnStreamingScorer with the shipped weights; gms launched L times a
-    tick; final state == a fresh rebuild; gms == plain on the resident
-    mirror after the first tick and after the churn, then timed there."""
-    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms
-    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
+# -- fused_tick: the learned path's serving tick ----------------------------
+
+# the scorer's tiers under test (settings overrides) and the entry point
+# each one serves through
+LEARNED_TIERS = {
+    "composed": {},
+    "fused": {"gnn_fused_tick": True},
+    "dma": {"gnn_tick_dma": True},
+    "dma_int8": {"gnn_tick_dma": True, "gnn_feature_quant": "int8"},
+}
+# kernel checks: entry point, compute dtype, node block, feature table
+CHECKS = {
+    "fused": ("fused", None, 64, ""),
+    "fused_bf16_compute": ("fused", "bfloat16", 64, ""),
+    "dma_nb64": ("dma", None, 64, ""),
+    "dma_nb2048": ("dma", None, 2048, ""),
+    "dma_bf16_table": ("dma", None, 2048, "bfloat16"),
+    "dma_int8_table": ("dma", None, 2048, "int8"),
+}
+QUANT_TOL = {"bfloat16": 0.05, "int8": 0.1}
+
+
+def shipped_params(dev):
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_backend import (
+        GnnRcaBackend)
+    return GnnRcaBackend(device=dev).params
+
+
+def params_to(params, dev):
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    return gnn.unflat_params({k: v.to(dev) for k, v in
+                              gnn.flat_params(params).items()})
+
+
+def make_delta(rng, pn: int, offs, pk: int, ek: int, inc_nodes, inc_mask,
+               empty: bool = False) -> np.ndarray:
+    """A packed GNN delta (the layout of rca/gnn_streaming._gnn_tick):
+    live aux and edge entries with a repeated index (the later entry must
+    win) and an out-of-range index between them (dropped), then padding;
+    ``empty``: padding only."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn import NUM_KINDS
+    pe, pi = int(offs[-1]), len(inc_nodes)
+    ints = np.zeros(3 * pk + 5 * ek + 2 * pi, np.int32)
+    ints[:pk] = pn
+    o = 3 * pk
+    ints[o:o + ek] = pe
+    if not empty:
+        na, ne = 9, 8
+        ints[:na] = rng.choice(pn, na, replace=False)
+        ints[5], ints[3] = ints[1], pn + 7
+        ints[pk:pk + na] = rng.integers(0, NUM_KINDS, na)
+        ints[2 * pk:2 * pk + na] = rng.integers(0, 2, na)
+        ints[2 * pk + 5] = 1 - ints[2 * pk + 1]
+        slots = rng.choice(pe, ne, replace=False)
+        ints[o:o + ne] = slots
+        ints[o + 6], ints[o + 4] = ints[o + 2], pe + 3
+        ints[o + ek:o + ek + ne] = rng.integers(0, pn, ne)
+        ints[o + 2 * ek:o + 2 * ek + ne] = rng.integers(0, pn, ne)
+        ints[o + 3 * ek:o + 3 * ek + ne] = np.searchsorted(
+            np.asarray(offs), slots, side="right") - 1
+        ints[o + 4 * ek:o + 4 * ek + ne] = rng.integers(0, 2, ne)
+        ints[o + 4 * ek + 6] = 1
+    io = 3 * pk + 5 * ek
+    ints[io:io + pi] = inc_nodes
+    ints[io + pi:io + 2 * pi] = inc_mask
+    return ints
+
+
+def tick_state(rng, params, pn: int, caps, live, pi: int = 64,
+               empty: bool = False) -> dict:
+    """A synthetic tick at the shipped widths: a relation-bucketed mirror
+    (per slice a dst-sorted live prefix, then padding with dst pinned to
+    the last row and mask 0) and a packed delta, on the CPU."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph.schema import DIM
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn import NUM_KINDS
+    offs = (0,) + tuple(int(c) for c in np.cumsum(caps))
+    pe = offs[-1]
+    esrc = rng.integers(0, pn, pe).astype(np.int32)
+    edst = np.full(pe, pn - 1, np.int32)
+    erel = np.full(pe, -1, np.int32)
+    emask = np.zeros(pe, np.float32)
+    for r, c in enumerate(live):
+        edst[offs[r]:offs[r] + c] = np.sort(rng.integers(0, pn, c))
+        erel[offs[r]:offs[r] + c] = r
+        emask[offs[r]:offs[r] + c] = 1.0
+    mirrors = (rng.integers(0, NUM_KINDS, pn).astype(np.int32),
+               (rng.random(pn) > 0.1).astype(np.float32), esrc, edst, erel,
+               emask)
+    ints = make_delta(rng, pn, offs, 64, 64, rng.integers(0, pn, pi),
+                      rng.random(pi) > 0.25, empty)
+    t = torch.from_numpy
+    return {"params": params_to(params, "cpu"),
+            "features": t(rng.standard_normal((pn, DIM)).astype(np.float32)),
+            "mirrors": [t(m) for m in mirrors], "ints": t(ints),
+            "offs": offs, "pk": 64, "ek": 64, "pi": pi}
+
+
+def resident_state(scorer, rng, empty: bool = False) -> dict:
+    """A CPU copy of the GNN scorer's resident state as it stands after
+    its last tick, with a packed delta of the scorer's incident tables."""
+    import torch
+    torch.cuda.synchronize()
+    snap = scorer.snapshot
+    ints = make_delta(rng, snap.padded_nodes, scorer._rel_offsets, 64, 64,
+                      snap.incident_nodes, snap.incident_mask, empty)
+    return {"params": params_to(scorer._params, "cpu"),
+            "features": scorer._features_dev.cpu(),
+            "mirrors": [t.cpu() for t in (
+                scorer._kind_dev, scorer._nmask_dev, scorer._esrc_dev,
+                scorer._edst_dev, scorer._erel_dev, scorer._emask_dev)],
+            "ints": torch.from_numpy(ints), "offs": tuple(scorer._rel_offsets),
+            "pk": 64, "ek": 64, "pi": snap.padded_incidents}
+
+
+def tick_operands(state: dict, check: str, dev) -> tuple:
+    """(callable, arguments) of one tick of ``check`` on a fresh copy of
+    ``state`` on ``dev``: the wrapper (kernel on the card, plain version on
+    the CPU), or with ``plain=True`` the plain version on any device."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.ops.fused_tick import (
+        quantize_features)
+    entry, cdt, nb, quant = CHECKS[check]
+    p = params_to(state["params"], dev)
+    m = [t.clone().to(dev) for t in state["mirrors"]]
+    ints = state["ints"].to(dev)
+    kw = dict(pk=state["pk"], ek=state["ek"], pi=state["pi"],
+              rel_offsets=state["offs"], compute_dtype=cdt)
+    if entry == "fused":
+        return (p, state["features"].to(dev), *m, ints), kw
+    pn = state["features"].shape[0]
+    hid = p["embed_b"].shape[0]
+    h = [torch.zeros((pn, hid), device=dev) for _ in range(2)]
+    kw["node_block"] = nb
+    if not quant:
+        return (p, state["features"].to(dev), *m, ints, *h), kw
+    table, scale = quantize_features(state["features"], quant)
+    f_idx = state["ints"][:state["pk"]].long()
+    fq = torch.zeros((state["pk"], table.shape[1]), dtype=table.dtype)
+    ok = f_idx < pn
+    fq[ok] = table[f_idx[ok]]
+    kw.update(feat_quant=quant, fq_rows=fq.to(dev),
+              feat_scale=None if scale is None else scale.to(dev))
+    return (p, table.to(dev), *m, ints, *h), kw
+
+
+def run_check(state: dict, check: str, dev, plain: bool = False) -> list:
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import fused_tick as fk
+    from kubernetes_aiops_evidence_graph_tpu_torch.ops import fused_tick as ft
+    args, kw = tick_operands(state, check, dev)
+    if CHECKS[check][0] == "fused":
+        fn = ft.fused_gnn_tick_plain if plain else fk.fused_gnn_tick
+    else:
+        fn = ft.fused_gnn_tick_dma_plain if plain else fk.fused_gnn_tick_dma
+    return [t.cpu() for t in fn(*args, **kw)]
+
+
+def composed_on(state: dict, out: list, table=None, scale=None):
+    """The composed forward (rca/gnn.forward, the plain message pass) on the
+    CPU over a tick's scattered mirrors ``out[:6]`` and a float32 feature
+    table: (logits, probs)."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.ops.fused_tick import (
+        dequantize)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    pk, ek, pi = state["pk"], state["ek"], state["pi"]
+    io = 3 * pk + 5 * ek
+    x = state["features"] if table is None else dequantize(table, scale)
+    logits = gnn.forward(state["params"], x, *out[:6],
+                         state["ints"][io:io + pi], rel_offsets=state["offs"])
+    mask = state["ints"][io + pi:io + 2 * pi].float()
+    return logits, torch.softmax(logits, dim=-1) * mask[:, None]
+
+
+def fused_check(state: dict, check: str, what: str, dev) -> float:
+    """Hold one entry point of fused_tick against its plain version on a CPU
+    copy of the same state: two launches equal bit for bit; the mirrors
+    (and a quant table) equal; logits, probs and the activation buffers
+    within rtol 1e-5 / atol 1e-5 (bf16 operands: 0.05) with equal argmax.
+    A quant table also within 1e-5 of the composed forward on the
+    dequantized table, and its probs within 0.05 (bf16) / 0.1 (int8) of
+    the float32 table's. Returns the largest logits/probs difference."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.ops.fused_tick import (
+        quantize_features)
+    with kept_counts():
+        got = run_check(state, check, dev)
+        again = run_check(state, check, dev)
+        torch.cuda.synchronize()
+        want = run_check(state, check, "cpu")
+    for a, b in zip(got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"fused_tick {check} {what}: two launches "
+                                 "differ")
+    tol = 0.05 if CHECKS[check][1] else 1e-5
+    names = ("kind", "nmask", "esrc", "edst", "erel", "emask", "logits",
+             "probs", "h_a", "h_b", "table")
+    err = 0.0
+    for name, a, b in zip(names, got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"fused_tick {check} {what}: {name} is "
+                                 f"{a.dtype}{list(a.shape)}, the plain "
+                                 f"version's {b.dtype}{list(b.shape)}")
+        if name in names[:6] or name == "table":
+            ok = torch.equal(a, b)
+        else:
+            ok = torch.allclose(a, b, rtol=tol, atol=tol)
+            if name in ("logits", "probs"):
+                err = max(err, float((a - b).abs().max()))
+        if not ok:
+            raise AssertionError(f"fused_tick {check} {what}: {name} differs "
+                                 "from the plain version (max |d| "
+                                 f"{float((a.float() - b.float()).abs().max())})")
+    if not torch.equal(got[6].argmax(-1), want[6].argmax(-1)):
+        raise AssertionError(f"fused_tick {check} {what}: argmax differs")
+    quant = CHECKS[check][3]
+    note = ""
+    if quant:
+        scale = quantize_features(state["features"], quant)[1]
+        with kept_counts():
+            logits, probs = composed_on(state, want, got[10], scale)
+            f32 = composed_on(state, want)[1]
+        d = max(float((got[6] - logits).abs().max()),
+                float((got[7] - probs).abs().max()))
+        if not (torch.allclose(got[6], logits, rtol=1e-5, atol=1e-5)
+                and torch.allclose(got[7], probs, rtol=1e-5, atol=1e-5)):
+            raise AssertionError(f"fused_tick {check} {what}: differs from "
+                                 f"the composed tick on the dequantized table "
+                                 f"by {d}")
+        dq = float((got[7] - f32).abs().max())
+        if dq >= QUANT_TOL[quant]:
+            raise AssertionError(f"fused_tick {check} {what}: probs {dq} "
+                                 f"from the float32 table's")
+        note = f"; {d:.3g} from composed(dequantized), {dq:.3g} from f32 probs"
+    log(f"fused_tick == plain: {check}, {what} (Pn={state['features'].shape[0]} "
+        f"Pe={state['offs'][-1]} live={int(state['mirrors'][5].sum())}; "
+        f"max |d| {err:.3g}{note})")
+    return err
+
+
+def fused_edge_cases(dev) -> float:
+    """Both entry points at edge shapes, with the shipped weights: repeated
+    and out-of-range delta entries with zero-width and all-padding slices,
+    every slice padding, an empty delta; node blocks 64 and 2048 equal bit
+    for bit."""
+    import torch
+    rng = np.random.default_rng(3)
+    params = shipped_params("cpu")
+    caps = (256, 128, 64, 0, 192, 64, 128, 0, 64)
+    states = {
+        "repeated and out-of-range delta entries, zero-width and "
+        "all-padding slices": tick_state(
+            rng, params, 4096, caps, (200, 128, 10, 0, 150, 0, 100, 0, 64)),
+        "every slice padding": tick_state(rng, params, 4096, caps, (0,) * 9),
+        "empty delta": tick_state(rng, params, 4096, caps,
+                                  (90, 60, 64, 0, 100, 1, 7, 0, 33),
+                                  empty=True),
+    }
+    err = 0.0
+    for what, state in states.items():
+        for check in CHECKS:
+            err = max(err, fused_check(state, check, what, dev))
+        with kept_counts():
+            a = run_check(state, "dma_nb64", dev)
+            b = run_check(state, "dma_nb2048", dev)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"fused_tick_dma {what}: node blocks 64 and "
+                                 "2048 differ")
+    return err
+
+
+def resident_fused_checks(scorer, tier: str, what: str) -> float:
+    """Both entry points against their plain versions on a copy of the
+    scorer's resident state (config 4's resident shape), with a delta of
+    repeated and out-of-range entries: float32 always, the run's quant
+    table in its run; after the churn of the int8 run also the bf16 table
+    and bf16 operands."""
+    rng = np.random.default_rng(7)
+    state = resident_state(scorer, rng)
+    checks = ["fused", "dma_nb2048"]
+    if tier == "dma_int8":
+        checks.append("dma_int8_table")
+        if "churn" in what:
+            checks += ["dma_bf16_table", "fused_bf16_compute"]
+    return max(fused_check(state, c, f"config 4 {tier} run, {what}", scorer.device)
+               for c in checks)
+
+
+def tick_timing(scorer, check: str) -> dict:
+    """One tick of ``check`` (an empty delta, so ticks repeat on the same
+    state) on the scorer's resident state: the kernel chain, its plain
+    version on the card, and the composed tick at the same shape (the
+    yardstick: no single PyTorch call computes the tick); the bound."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph.schema import DIM
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import fused_tick as fk
+    from kubernetes_aiops_evidence_graph_tpu_torch.ops import fused_tick as ft
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
+        _gnn_tick)
+    state = resident_state(scorer, np.random.default_rng(0), empty=True)
+    dev = scorer.device
+    entry, _, _, quant = CHECKS[check]
+    k_args, kw = tick_operands(state, check, dev)
+    p_args, _ = tick_operands(state, check, dev)
+    c_args, _ = tick_operands(state, "fused", dev)
+    kernel = fk.fused_gnn_tick if entry == "fused" else fk.fused_gnn_tick_dma
+    plain = (ft.fused_gnn_tick_plain if entry == "fused"
+             else ft.fused_gnn_tick_dma_plain)
+    pk, ek, pi, offs = state["pk"], state["ek"], state["pi"], state["offs"]
+    with kept_counts():
+        t = timed(lambda: kernel(*k_args, **kw), lambda: plain(*p_args, **kw))
+        t["composed_ms"] = device_ms(lambda: _gnn_tick(
+            *c_args, pk, ek, pi, 0, 0, offs, None))
+        t["ms_by_kernel"] = {
+            (re.findall(r"\w+_kernel", name) or [name])[0]: ms
+            for name, ms in device_ms(lambda: kernel(*k_args, **kw),
+                                      by_kernel=True).items()}
+    p = state["params"]
+    live = int((state["mirrors"][5] != 0).sum())
+    b = fk.bound(pn=state["features"].shape[0], pe=int(offs[-1]), live=live,
+                 dim=DIM, hidden=int(p["embed_b"].shape[0]),
+                 classes=int(p["head_b"].shape[0]),
+                 num_layers=len(p["layers"]),
+                 num_rels=int(p["layers"][0]["w_rel"].shape[0]), pk=pk,
+                 ek=ek, pi=pi, feat_quant=quant, dma=entry == "dma")
+    t.update(bound_of(b["bytes"], b["ops"]))
+    t["floor_bytes"] = b["floor_bytes"]
+    t["floor_ms"] = b["floor_bytes"] / HBM_BYTES_PER_S * 1e3
+    t["live_edges"] = live
+    return t
+
+
+def run_streaming_learned(tier: str = "composed", num_pods: int = 10_000,
+                          num_incidents: int = 100, events: int = 2000,
+                          batch_size: int = 100, seed: int = 0) -> dict:
+    """Config 4, learned (bench.py's streaming loop with backend="gnn"),
+    under one of the scorer's tiers: GnnStreamingScorer with the shipped
+    weights; the tier's kernel launched once a tick (composed: gms L times
+    a tick); final state == a fresh rebuild; the kernels == plain on the
+    resident state after the first tick and after the churn, then timed
+    there."""
+    import torch
     from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
         GnnStreamingScorer)
     from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
         churn_events)
 
     settings, cluster, builder = streaming_world(num_pods, num_incidents, seed)
+    settings = dataclasses.replace(settings, **LEARNED_TIERS[tier])
     # the replay clock: deploy recency is a feature the GNN reads, so the
     # fresh rebuild must extract it against the same epoch
     now_s = cluster.now.timestamp()
@@ -712,34 +1091,67 @@ def run_streaming_learned(num_pods: int = 10_000, num_incidents: int = 100,
         incident_ids=tuple(builder.store.incident_ids())))
 
     errs = []
-    gms.launches = rf.launches = 0
+    if tier == "composed":
+        def check(s):
+            errs.append(resident_gms_check(
+                s, "config 4 resident mirror after the first tick")[1])
+    else:
+        def check(s):
+            errs.append(resident_fused_checks(s, tier, "after the first tick"))
+    reset_counts()
     inc_res, eps, tick_ms, ticks = churn_ticks(
-        scorer, cluster, builder, stream, batch_size,
-        lambda s: errs.append(resident_gms_check(
-            s, "config 4 resident mirror after the first tick")[1]))
-    launches, rules_launches = gms.launches, rf.launches
-    if launches != layers * ticks:
-        raise AssertionError(f"config 4 learned: {launches} gms launches "
-                             f"for {ticks} ticks of {layers} layers")
+        scorer, cluster, builder, stream, batch_size, check)
+    counts = read_counts()
+    want = {"composed": {"gms": layers * ticks, "fused_tick": 0,
+                         "fused_tick_dma": 0},
+            "fused": {"gms": 0, "fused_tick": ticks, "fused_tick_dma": 0}
+            }.get(tier, {"gms": 0, "fused_tick": 0, "fused_tick_dma": ticks})
+    if any(counts[k] != n for k, n in want.items()) or counts["rules_fold"] < ticks:
+        raise AssertionError(f"config 4 learned {tier}: launches {counts} for "
+                             f"{ticks} ticks of {layers} layers, expected {want}")
     if not np.isfinite(inc_res["probs"]).all():
-        raise AssertionError("config 4 learned: non-finite probs")
+        raise AssertionError(f"config 4 learned {tier}: non-finite probs")
     fresh = GnnStreamingScorer(builder.store, settings, now_s=now_s).rescore()
-    n_live = same_learned_verdicts(inc_res, fresh, "config 4 learned")
-    log(f"config 4 learned: {len(stream)} events, {ticks} ticks, "
-        f"{launches} gms launches, rebuilds={scorer.rebuilds}, final "
-        f"state == fresh rebuild on {n_live} incidents; {eps:.1f} events/s, "
-        f"dispatch p50 {tick_ms:.3f} ms")
-    args, err = resident_gms_check(
-        scorer, "config 4 resident mirror after the churn")
+    quant = settings.gnn_feature_quant
+    n_live, near = same_learned_verdicts(inc_res, fresh,
+                                         f"config 4 learned {tier}",
+                                         QUANT_TOL.get(quant))
+    if quant:
+        # the incremental quant table == the host features quantized
+        # against the table's frozen scale, row for row
+        pn = scorer.snapshot.padded_nodes
+        table = scorer._features_q_dev.cpu()
+        want = torch.from_numpy(scorer._quant_rows(list(range(pn)), pn))
+        if not torch.equal(table, want.to(table.dtype)):
+            raise AssertionError(f"config 4 learned {tier}: the quant table "
+                                 "differs from the host features quantized "
+                                 "against its scale")
+    log(f"config 4 learned {tier}: {len(stream)} events, {ticks} ticks, "
+        f"launches {counts}, rebuilds={scorer.rebuilds}, final state == "
+        f"fresh rebuild on {n_live} incidents ({near} near-ties of the "
+        f"quant tier not held); {eps:.1f} events/s, dispatch p50 "
+        f"{tick_ms:.3f} ms")
     offs, pn = scorer._rel_offsets, scorer.snapshot.padded_nodes
-    timing = gms_timing(args, offs, pn)
-    log(f"config 4 gms timing: {timing}")
-    return {"events_per_s": eps, "dispatch_p50_ms": tick_ms,
-            "launches": launches, "rules_fold_launches": rules_launches,
-            "ticks": ticks, "timing": timing, "max_abs_err": max(errs + [err]),
-            "shape": {"Pn": pn, "Pe": int(offs[-1]),
-                      "live_edges": timing["live_edges"],
-                      "rel_offsets": list(offs)}}
+    out = {"events_per_s": eps, "dispatch_p50_ms": tick_ms, "ticks": ticks,
+           "counts": counts, "launches": counts["gms"],
+           "rules_fold_launches": counts["rules_fold"],
+           "shape": {"Pn": pn, "Pe": int(offs[-1]), "rel_offsets": list(offs)}}
+    if tier == "composed":
+        args, err = resident_gms_check(
+            scorer, "config 4 resident mirror after the churn")
+        timing = gms_timing(args, offs, pn)
+        log(f"config 4 gms timing: {timing}")
+        out.update(timing=timing, max_abs_err=max(errs + [err]))
+        out["shape"]["live_edges"] = timing["live_edges"]
+        return out
+    err = resident_fused_checks(scorer, tier, "after the churn")
+    check = {"fused": "fused", "dma": "dma_nb2048",
+             "dma_int8": "dma_int8_table"}[tier]
+    timing = tick_timing(scorer, check)
+    log(f"config 4 learned {tier} tick timing: {timing}")
+    out.update(timing=timing, max_abs_err=max(errs + [err]))
+    out["shape"]["live_edges"] = timing["live_edges"]
+    return out
 
 
 def main() -> int:
@@ -817,7 +1229,7 @@ def main() -> int:
         f"incidents, Pn={snapshot.padded_nodes} Pi={snapshot.padded_incidents} "
         f"Pe={snapshot.padded_edges} ({time.perf_counter() - t0:.1f} s)")
     backend = CudaRcaBackend()
-    rf.launches = gms.launches = 0
+    reset_counts()
     raw = backend.score_snapshot(snapshot)
     results = backend.results(raw=raw)
     launches_c3 = rf.launches
@@ -868,12 +1280,19 @@ def main() -> int:
     learned3 = run_learned_config3(snapshot, oracle, dev)
     gms_err = max(gms_err, learned3["max_abs_err"])
 
-    # -- 7. config 4 streaming, both backends ------------------------------
+    # -- 7. fused_tick vs plain at edge shapes ------------------------------
+    fused_err = fused_edge_cases(dev)
+
+    # -- 8. config 4 streaming, both backends, the learned one per tier ----
     eps, tick_ms, launches_c4, ticks, c4_shape, c4_timing, c4_err = \
         run_streaming()
     max_err = max(max_err, c4_err)
     learned4 = run_streaming_learned()
     gms_err = max(gms_err, learned4["max_abs_err"])
+    tiers = {t: run_streaming_learned(t) for t in ("fused", "dma", "dma_int8")}
+    fused_err = max([fused_err] + [r["max_abs_err"] for r in tiers.values()])
+    rules_learned = {f"config4_learned_{t}": r["rules_fold_launches"]
+                     for t, r in {"composed": learned4, **tiers}.items()}
 
     kernels = [{
         "name": "rules_fold", "route": "cuda",
@@ -882,10 +1301,10 @@ def main() -> int:
                     "pallas_rules.py:113 (_rules_kernel) + "
                     "kubernetes_aiops_evidence_graph_tpu/rca/tpu_backend.py:258"
                     " (_aggregate)",
-        "launches": launches_c3 + launches_c4 + learned4["rules_fold_launches"],
+        "launches": launches_c3 + launches_c4 + sum(rules_learned.values()),
         "launches_by_path": {
             "config3_rules": launches_c3, "config4_rules": launches_c4,
-            "config4_learned": learned4["rules_fold_launches"]},
+            **rules_learned},
         "config4_ticks": ticks,
         "max_abs_err": max_err,
         "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
@@ -932,10 +1351,50 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
             "ms_per_call", "plan_ms", "ms_by_kernel", "timed_by")},
     }]
+    for name, runs, line in (
+            ("fused_tick", ("fused",),
+             "406 (_fused_kernel_factory; pallas_call :565)"),
+            ("fused_tick_dma", ("dma", "dma_int8"),
+             "785 (_dma_kernel_factory; pallas_call :1095)")):
+        t = tiers[runs[0]]["timing"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "kubernetes_aiops_evidence_graph_tpu_torch/kernels/"
+                      "fused_tick.cu",
+            "replaces": "kubernetes_aiops_evidence_graph_tpu/ops/"
+                        f"pallas_segment.py:{line}",
+            "launches": sum(tiers[r]["counts"][name] for r in runs),
+            "launches_by_path": {f"config4_learned_{r}": tiers[r]["counts"][name]
+                                 for r in runs},
+            "config4_ticks": tiers[runs[0]]["ticks"],
+            "max_abs_err": fused_err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the tick; "
+                            "composed_ms is the composed tick (scatter, "
+                            "gnn.forward with the gms kernel, softmax) at "
+                            "the same shape",
+            "composed_ms": t["composed_ms"],
+            "timed_by": t["timed_by"], "ms_per_call": t["ms_per_call"],
+            "plain_ms_per_call": t["plain_ms_per_call"],
+            "ms_by_kernel": t["ms_by_kernel"],
+            "bound_bytes": t["bound_bytes"], "bound_ops": t["bound_ops"],
+            "floor_bytes": t["floor_bytes"], "floor_ms": t["floor_ms"],
+            "config4_shape": tiers[runs[0]]["shape"],
+            "by_tier": {r: {k: tiers[r]["timing"][k] for k in (
+                "ms", "plain_ms", "composed_ms", "bound_ms", "bound_by")}
+                for r in runs},
+        })
     log(f"config 4: rules {eps:.1f} events/s, dispatch p50 {tick_ms:.3f} ms; "
         f"learned {learned4['events_per_s']:.1f} events/s, dispatch p50 "
         f"{learned4['dispatch_p50_ms']:.3f} ms; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    for t, r in tiers.items():
+        log(f"config 4 learned {t}: {r['events_per_s']:.1f} events/s, "
+            f"dispatch p50 {r['dispatch_p50_ms']:.3f} ms, tick "
+            f"{r['timing']['ms']:.4f} ms device vs composed "
+            f"{r['timing']['composed_ms']:.4f} ms at the same shape")
     print(json.dumps({
         "config3_verdicts": snapshot.num_incidents,
         "config3_top1_differs_from_cpu_oracle": sum(disagree.values()),
@@ -951,7 +1410,13 @@ def main() -> int:
         "config4_events_per_s": eps,
         "config4_dispatch_p50_ms": tick_ms,
         "config4_learned_events_per_s": learned4["events_per_s"],
-        "config4_learned_dispatch_p50_ms": learned4["dispatch_p50_ms"]}))
+        "config4_learned_dispatch_p50_ms": learned4["dispatch_p50_ms"],
+        **{f"config4_learned_{t}_{k}": r[k] for t, r in tiers.items()
+           for k in ("events_per_s", "dispatch_p50_ms")},
+        **{f"config4_learned_{t}_tick_ms": r["timing"]["ms"]
+           for t, r in tiers.items()},
+        "config4_learned_composed_tick_ms":
+            tiers["fused"]["timing"]["composed_ms"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -49,6 +49,23 @@ class Settings:
     # "" = float32 message passing; "bfloat16" casts the matmul operands
     # (accumulation stays float32)
     gnn_compute_dtype: str = ""
+    # the fused serving tick (kernels/fused_tick.fused_gnn_tick): delta
+    # scatter, message pass and verdict in one chain of hand kernels.
+    # Needs a non-empty EDGE_TILE-aligned relation layout and a compute
+    # dtype of "" or "bfloat16"; the composed tick serves otherwise
+    gnn_fused_tick: bool = False
+    # the streamed tick (kernels/fused_tick.fused_gnn_tick_dma): the
+    # fused tick over two persistent activation buffers, node_block rows
+    # per block, with the f32/bf16/int8 feature tiers. Takes precedence
+    # over gnn_fused_tick when its layout check passes
+    gnn_tick_dma: bool = False
+    # node rows per block in the streamed tick's embed and update (clamped
+    # to the node bucket, which it must divide)
+    gnn_dma_node_block: int = _ladders.DMA_NODE_BLOCK
+    # quantized node-feature table of the streamed tick: "" = float32,
+    # "bfloat16", or "int8" with a per-column absmax scale
+    # (ops/fused_tick.quantize_features). Only read when gnn_tick_dma is on
+    gnn_feature_quant: str = ""
 
     # --- snapshot padding ladders (graph/snapshot.py; rungs in ladders.py)
     node_bucket_sizes: tuple = _ladders.NODE_BUCKET_SIZES
@@ -69,7 +86,9 @@ def load_settings(**overrides: Any) -> Settings:
         if env_name not in os.environ:
             continue
         raw = os.environ[env_name]
-        if isinstance(f.default, int):
+        if isinstance(f.default, bool):
+            kwargs[f.name] = raw.strip().lower() in ("1", "true", "yes", "on")
+        elif isinstance(f.default, int):
             kwargs[f.name] = int(raw)
         elif isinstance(f.default, tuple):
             kwargs[f.name] = _parse_buckets(raw)

@@ -3,8 +3,9 @@
 Each ``kernels/<name>.cu`` compiles with ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers: a file that includes them
 takes minutes to compile, a plain one seconds). Libraries land in
-``kernels/_build/``, named by a hash of their source so an edited source
-never loads a stale library. Nothing here runs at import time.
+``kernels/_build/``, named by a hash of their source and of the shared
+headers (``kernels/*.cuh``), so an edited source never loads a stale
+library. Nothing here runs at import time.
 
 The target is ``sm_90a``: Hopper (H100, H200).
 """
@@ -21,7 +22,7 @@ from pathlib import Path
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("rules_fold", "gms")
+SOURCES = ("rules_fold", "gms", "fused_tick")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -42,10 +43,11 @@ _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 
 def library_path(name: str) -> Path:
-    src = KERNEL_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(_ARCH_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((KERNEL_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(KERNEL_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(_ARCH_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _command(name: str, out: Path) -> list[str]:

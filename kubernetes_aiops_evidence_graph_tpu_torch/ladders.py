@@ -26,6 +26,14 @@ REL_SLICE_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192,
                      16384, 24576, 32768)
 REL_SLICE_STEP = 8192
 
+# edge rows per message-pass tile: every relation-slice capacity of the
+# ladder above is a multiple of it, which the fused tick requires
+# (ops/fused_tick.tiles_align)
+EDGE_TILE = 64
+# node rows per block in the streamed tick's embed and update
+# (config/settings.py gnn_dma_node_block default; kernels/fused_tick)
+DMA_NODE_BLOCK = 2048
+
 # snapshot topology ladders (config/settings.py defaults)
 NODE_BUCKET_SIZES = (256, 1024, 4096, 16384, 65536, 262144, 524288)
 INCIDENT_BUCKET_SIZES = (8, 32, 128, 512)

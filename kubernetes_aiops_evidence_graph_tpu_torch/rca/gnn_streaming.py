@@ -21,10 +21,21 @@ cascade of a node removal from a per-node adjacency of live edge keys.
 
 One tick's GNN delta (node kinds and masks, edge slots, the incident
 tables) rides the base scorer's staged slab, so the whole tick pays one
-host→device copy; the GNN tick then copies the live prefix of each delta
-into the resident mirror in place and runs the forward on the updated
-features, on the scorer's stream. The base rules tick still runs (it
-applies the shared feature delta); its outputs are not fetched.
+host→device copy; the GNN tick then applies it to the resident mirror in
+place and runs the forward on the updated features, on the scorer's
+stream. The base rules tick still runs (it applies the shared feature
+delta); its outputs are not fetched.
+
+The GNN tick runs in one of three tiers (:meth:`GnnStreamingScorer.
+_call_gnn_tick`), all with the same verdicts at float32:
+
+* **streamed** (``settings.gnn_tick_dma``): ``kernels/fused_tick.
+  fused_gnn_tick_dma`` over two persistent activation buffers, optionally
+  on a bf16 or int8 copy of the feature table (``gnn_feature_quant``);
+* **fused** (``settings.gnn_fused_tick``): ``kernels/fused_tick.
+  fused_gnn_tick``;
+* **composed** (otherwise): :func:`_gnn_tick`, the scatter then
+  ``rca/gnn.forward`` (``kernels/gms`` per layer).
 """
 from __future__ import annotations
 
@@ -38,7 +49,9 @@ from ..device import resolve_device
 from ..graph.schema import RelationKind
 from ..graph.snapshot import rel_slice_offsets
 from ..graph.store import EvidenceGraphStore
+from ..kernels import fused_tick
 from ..ladders import DELTA_BUCKETS as _DELTA_BUCKETS, REL_SLICE_BUCKETS
+from ..ops.fused_tick import quantize_features, tiles_align
 from ..utils.padding import bucket_for
 from . import gnn
 from .gnn_backend import resolve_params
@@ -87,6 +100,54 @@ def _gnn_tick(params, features, kind, nmask, esrc, edst, erel, emask, ints,
     return logits, probs
 
 
+def _gnn_fused_tick(params, features, kind, nmask, esrc, edst, erel, emask,
+                    ints, pk: int, ek: int, pi: int,
+                    rel_offsets: tuple[int, ...], compute_dtype=None) -> tuple:
+    """The fused tier (``settings.gnn_fused_tick``): :func:`_gnn_tick`'s
+    operands and result, the whole tick in ``kernels/fused_tick.
+    fused_gnn_tick`` — the delta scatter (which drops the padding itself),
+    the message pass and the verdict. ``compute_dtype`` None or
+    "bfloat16". Returns ``(logits, probs)``."""
+    out = fused_tick.fused_gnn_tick(
+        params, features, kind, nmask, esrc, edst, erel, emask, ints, pk=pk,
+        ek=ek, pi=pi, rel_offsets=rel_offsets, compute_dtype=compute_dtype)
+    return out[6], out[7]
+
+
+def _gnn_dma_tick(params, features, kind, nmask, esrc, edst, erel, emask,
+                  ints, h_a, h_b, pk: int, ek: int, pi: int,
+                  rel_offsets: tuple[int, ...], node_block: int = 2048,
+                  compute_dtype=None) -> tuple:
+    """The streamed tier (``settings.gnn_tick_dma``) on the float32
+    features: the fused tick in ``kernels/fused_tick.fused_gnn_tick_dma``,
+    over the scorer's two persistent ``[Pn, H]`` activation buffers
+    ``h_a``/``h_b`` (pure per-tick scratch, rewritten in place).
+    ``node_block`` rows per block. Returns ``(logits, probs)``."""
+    out = fused_tick.fused_gnn_tick_dma(
+        params, features, kind, nmask, esrc, edst, erel, emask, ints, h_a, h_b,
+        pk=pk, ek=ek, pi=pi, rel_offsets=rel_offsets, node_block=node_block,
+        compute_dtype=compute_dtype)
+    return out[6], out[7]
+
+
+def _gnn_dma_tick_q(params, features_q, kind, nmask, esrc, edst, erel, emask,
+                    ints, h_a, h_b, fq_rows, feat_scale, pk: int, ek: int,
+                    pi: int, rel_offsets: tuple[int, ...],
+                    node_block: int = 2048, compute_dtype=None,
+                    feat_quant: str = "int8") -> tuple:
+    """The streamed tier's quantized tables (``settings.
+    gnn_feature_quant``): the node features are the resident bf16 or int8
+    table ``features_q``; the tick's ``fq_rows`` (the aux rows quantized
+    against the frozen scale) land in it in place, and the embed
+    dequantizes (int8 times ``feat_scale``). Returns ``(logits, probs)``."""
+    out = fused_tick.fused_gnn_tick_dma(
+        params, features_q, kind, nmask, esrc, edst, erel, emask, ints, h_a,
+        h_b, pk=pk, ek=ek, pi=pi, rel_offsets=rel_offsets,
+        node_block=node_block, compute_dtype=compute_dtype,
+        feat_quant=feat_quant, fq_rows=fq_rows, feat_scale=feat_scale)
+    return out[6], out[7]
+
+
 class GnnStreamingScorer(StreamingScorer):
     """StreamingScorer + resident edge mirror + per-tick GNN forward.
 
@@ -107,6 +168,23 @@ class GnnStreamingScorer(StreamingScorer):
         self._params_prev: "tuple | None" = None
         self._params_source = ""
         self._compute_dtype = cfg.gnn_compute_dtype or None
+        # the tick's tier (see _call_gnn_tick): fused, streamed, and the
+        # streamed tier's quantized feature table
+        self._use_fused = bool(cfg.gnn_fused_tick)
+        self._use_dma = bool(cfg.gnn_tick_dma)
+        self._dma_node_block = int(cfg.gnn_dma_node_block)
+        self._feat_quant = str(cfg.gnn_feature_quant or "")
+        # the streamed tier's two [Pn, H] activation buffers, kept across
+        # ticks (rewritten in place by every tick)
+        self._dma_h: "tuple[torch.Tensor, torch.Tensor] | None" = None
+        # the quantized feature table and its per-column scale, re-derived
+        # from the host features at every mirror (re)build (_quant_refresh)
+        self._features_q_dev: "torch.Tensor | None" = None
+        self._feat_scale_dev: "torch.Tensor | None" = None
+        self._feat_scale_host: "np.ndarray | None" = None
+        # this dispatch's quantized delta rows, staged by dispatch() and
+        # consumed by _dispatch_dma
+        self._dma_stage_fq: "np.ndarray | None" = None
         # the packed GNN delta the staged slab carries this dispatch
         self._gnn_stage: "np.ndarray | None" = None
         self._last_gnn: "tuple | None" = None
@@ -204,6 +282,41 @@ class GnnStreamingScorer(StreamingScorer):
         # directed slot -> (src_row, dst_row, rel_kind, mask)
         self._pending_edges: dict[int, tuple[int, int, int, int]] = {}
         self._last_gnn = None
+        self._quant_refresh()
+
+    # -- the streamed tier's quantized feature table -----------------------
+
+    def _quant_refresh(self) -> None:
+        """(Re)derive the quantized feature table and its per-column
+        scale from the host features, at every mirror (re)build. The scale
+        then stays frozen until the next refresh; each tick's delta rows
+        quantize against it (clipped, within the tier's tolerance)."""
+        if not self._feat_quant:
+            self._features_q_dev = self._feat_scale_dev = None
+            self._feat_scale_host = None
+            return
+        with self._on_stream():
+            q, scale = quantize_features(self._upload(self.snapshot.features),
+                                         self._feat_quant)
+        self._features_q_dev, self._feat_scale_dev = q, scale
+        self._feat_scale_host = (None if scale is None
+                                 else scale.cpu().numpy())
+
+    def _quant_rows(self, rows: list[int], pk: int) -> np.ndarray:
+        """The tick's quantized feature delta: the aux rows' current host
+        features quantized against the frozen scale, padded to the
+        ``[pk, DIM]`` delta bucket (same slots as the aux delta). float32
+        values for the bf16 tier (cast on the device), int8 otherwise."""
+        dim = self.snapshot.features.shape[1]
+        out = np.zeros((pk, dim), np.float32)
+        if rows:
+            out[:len(rows)] = self.snapshot.features[rows]
+        if self._feat_quant == "bfloat16":
+            return out
+        scale = self._feat_scale_host
+        safe = np.where(scale > 0, scale, 1.0)
+        q = np.clip(np.round(out / safe[None, :]), -127, 127)
+        return np.where(scale[None, :] > 0, q, 0.0).astype(np.int8)
 
     # -- journal-driven mirror maintenance --------------------------------
 
@@ -317,28 +430,100 @@ class GnnStreamingScorer(StreamingScorer):
         ]).astype(np.int32, copy=False)
         return ints, pk, ek, len(aux_rows), len(ents)
 
+    # -- the tick's tier ----------------------------------------------------
+
+    def _kernel_tier_ok(self, rel_offsets) -> bool:
+        """The kernel tiers' common check: compute dtype None or
+        "bfloat16", and a non-empty EDGE_TILE-aligned relation layout (the
+        current one, or the one given)."""
+        offs = self._rel_offsets if rel_offsets is None else rel_offsets
+        return (self._compute_dtype in (None, "bfloat16") and len(offs) >= 2
+                and int(offs[-1]) > 0 and tiles_align(offs))
+
+    def _fused_ok(self, rel_offsets=None) -> bool:
+        """Whether the fused tier serves: ``gnn_fused_tick`` on and
+        :meth:`_kernel_tier_ok`."""
+        return self._use_fused and self._kernel_tier_ok(rel_offsets)
+
+    def _dma_ok(self, rel_offsets=None) -> bool:
+        """Whether the streamed tier serves: ``gnn_tick_dma`` on,
+        :meth:`_kernel_tier_ok`, and a node count that the node block
+        (clamped to it) divides. No device-memory threshold: on the card
+        both tiers keep their activations in device memory, and their
+        float32 verdicts are the same. ``gnn_feature_quant`` without
+        ``gnn_tick_dma`` selects nothing."""
+        pn = self.snapshot.padded_nodes
+        return (self._use_dma and self._kernel_tier_ok(rel_offsets)
+                and pn % min(self._dma_node_block, pn) == 0)
+
+    def _dispatch_dma(self, args: tuple, pk: int, ek: int, pi: int,
+                      offs: tuple[int, ...]) -> tuple:
+        """One streamed tick over the persistent activation buffers (made
+        at the first tick of a node count) and, under a quant tier, the
+        resident quantized table with this dispatch's delta rows."""
+        params, features = args[0], args[1]
+        pn = int(features.shape[0])
+        hid = int(params["embed_b"].shape[0])
+        nb = min(self._dma_node_block, pn)
+        if self._dma_h is None or tuple(self._dma_h[0].shape) != (pn, hid):
+            self._dma_h = tuple(torch.zeros((pn, hid), dtype=torch.float32,
+                                            device=self.device)
+                                for _ in range(2))
+        if not self._feat_quant:
+            return _gnn_dma_tick(*args, *self._dma_h, pk, ek, pi, offs,
+                                 node_block=nb,
+                                 compute_dtype=self._compute_dtype)
+        fq_rows = self._upload(self._dma_stage_fq).to(
+            self._features_q_dev.dtype)
+        self._dma_stage_fq = None
+        return _gnn_dma_tick_q(params, self._features_q_dev, *args[2:],
+                               *self._dma_h, fq_rows, self._feat_scale_dev,
+                               pk, ek, pi, offs, node_block=nb,
+                               compute_dtype=self._compute_dtype,
+                               feat_quant=self._feat_quant)
+
+    def _call_gnn_tick(self, args: tuple, pk: int, ek: int, pi: int,
+                       f_live: int, e_live: int, rel_offsets=None) -> tuple:
+        """Run one GNN tick through the tier the settings select: the
+        streamed tier when :meth:`_dma_ok`, else the fused tier when
+        :meth:`_fused_ok`, else the composed :func:`_gnn_tick` (which
+        copies the ``f_live``/``e_live`` live prefixes; the kernel tiers
+        drop the padding themselves). ``args`` are :func:`_gnn_tick`'s
+        first nine operands. Returns ``(logits, probs)``."""
+        offs = self._rel_offsets if rel_offsets is None else rel_offsets
+        if self._dma_ok(offs):
+            return self._dispatch_dma(args, pk, ek, pi, offs)
+        if self._fused_ok(offs):
+            return _gnn_fused_tick(*args, pk, ek, pi, offs,
+                                   compute_dtype=self._compute_dtype)
+        return _gnn_tick(*args, pk, ek, pi, f_live, e_live, offs,
+                         self._compute_dtype)
+
     def dispatch(self) -> tuple:
         """The base tick (shared feature delta + rules score), then the GNN
         tick on the UPDATED features. The edge-journal drain and the GNN
         delta pack run BEFORE the base dispatch, so the packed GNN ints
-        ride the base scorer's staged slab (one host→device copy). Returns
-        the base device outputs; the GNN outputs land in ``_last_gnn``."""
+        ride the base scorer's staged slab (one host→device copy); under a
+        quant tier the aux rows' quantized features are staged beside
+        them. Returns the base device outputs; the GNN outputs land in
+        ``_last_gnn``."""
         aux_rows = self._pending_feat.keys()
         self._drain_edges()
         ints, pk, ek, f_live, e_live = self._packed_gnn_delta(aux_rows)
+        if self._feat_quant:
+            self._dma_stage_fq = self._quant_rows(aux_rows, pk)
         self._gnn_stage = ints
         try:
             out = super().dispatch()
         finally:
             self._gnn_stage = None
         ints_dev, self._staged_gnn_dev = self._staged_gnn_dev, None
-        with self._on_stream():
-            logits, probs = _gnn_tick(
-                self._params, self._features_dev, self._kind_dev,
+        args = (self._params, self._features_dev, self._kind_dev,
                 self._nmask_dev, self._esrc_dev, self._edst_dev,
-                self._erel_dev, self._emask_dev, ints_dev, pk, ek,
-                self.snapshot.padded_incidents, f_live, e_live,
-                self._rel_offsets, self._compute_dtype)
+                self._erel_dev, self._emask_dev, ints_dev)
+        with self._on_stream():
+            logits, probs = self._call_gnn_tick(
+                args, pk, ek, self.snapshot.padded_incidents, f_live, e_live)
         self._last_gnn = (self.params_generation, logits, probs)
         return out
 

@@ -141,7 +141,7 @@ def test_ladders_equal_the_jax_registry():
     assert names == {"DELTA_BUCKETS", "ROW_BUCKETS", "WIDTH_BUCKETS",
                      "PAIR_WIDTH_BUCKETS", "PACK_BUCKETS", "REL_SLICE_BUCKETS",
                      "REL_SLICE_STEP", "NODE_BUCKET_SIZES",
-                     "INCIDENT_BUCKET_SIZES"}
+                     "INCIDENT_BUCKET_SIZES", "EDGE_TILE", "DMA_NODE_BLOCK"}
     for n in names:
         assert getattr(tl, n) == getattr(jl, n), n
 
@@ -159,14 +159,21 @@ def test_settings_hold_only_what_the_port_reads(monkeypatch):
         monkeypatch.delenv(k)
     monkeypatch.setenv("KAEG_SERVE_PIPELINE_DEPTH", "4")
     monkeypatch.setenv("KAEG_INCIDENT_BUCKET_SIZES", "32,8")
+    monkeypatch.setenv("KAEG_GNN_TICK_DMA", "true")
+    monkeypatch.setenv("KAEG_GNN_FEATURE_QUANT", "int8")
     monkeypatch.setenv("KAEG_MESH_DP", "4")
     with pytest.warns(UserWarning, match="KAEG_MESH_DP: no such setting"):
         s = ts.load_settings()
     assert s.serve_pipeline_depth == 4 and s.incident_bucket_sizes == (8, 32)
-    assert not hasattr(s, "mesh_dp")
+    assert s.gnn_tick_dma is True and s.gnn_fused_tick is False
+    assert s.gnn_feature_quant == "int8" and s.gnn_dma_node_block == 2048
+    monkeypatch.setenv("KAEG_GNN_TICK_DMA", "0")
     monkeypatch.delenv("KAEG_MESH_DP")
-    with pytest.raises(TypeError):
-        ts.load_settings(gnn_pallas=True)
+    assert ts.load_settings().gnn_tick_dma is False
+    assert not hasattr(s, "mesh_dp")
+    for field in ("gnn_pallas", "vmem_budget_bytes"):
+        with pytest.raises(TypeError):
+            ts.load_settings(**{field: 1})
 
 
 def test_promql_json_equals_the_yaml_library():
