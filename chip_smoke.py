@@ -7,7 +7,9 @@ Drives ``kubernetes_aiops_evidence_graph_tpu_torch`` on the card, both RCA
 paths: the rules path (``rca_backend="tpu"``, kernel ``rules_fold``) and
 the learned path (``rca_backend="gnn"``, kernel ``gms``, and the serving
 tick ``fused_tick`` with its two entry points ``fused_gnn_tick`` and
-``fused_gnn_tick_dma`` behind the scorer's fused and streamed tiers):
+``fused_gnn_tick_dma`` behind the scorer's fused and streamed tiers), and
+the learned model's training, offline (``rca/train.py``) and online
+(``learn/``), whose backward adds the kernel ``grad_w``:
 
 1. requires CUDA (exits non-zero without it) and prints the card's name
    and power limit as nvidia-smi reports them;
@@ -37,7 +39,23 @@ tick ``fused_tick`` with its two entry points ``fused_gnn_tick`` and
    argmax equal wherever the plain version's top two logits differ by
    more than 1e-4 (the rest are counted); the GNN's top-1 agreement with
    the CPU rules oracle is printed for information;
-7. both ``fused_tick`` entry points against their plain versions on a
+7. training at config 3: ``grad_w`` against its plain version
+   (``ops/segment.gms_grad_w``) within 1e-5 of the result's scale at edge
+   shapes (zero-width and all-padding slices, more relations than slices,
+   repeated src and dst, unaligned offsets, bf16 h, H != K) and at the
+   config-3 layout, relations with no live edge exactly zero, two
+   launches equal bit for bit; the message pass's backward (the autograd
+   Function of ``kernels/gms``: dh by gms on the src-CSR, dw by grad_w)
+   against the plain version's autograd on a CPU copy, rtol/atol 1e-4,
+   timed beside a torch composition; one training step from the shipped
+   params (labels: the CPU rules oracle's top-1) through
+   ``make_train_step`` with 6 gms and 3 grad_w launches, the loss and
+   every grad leaf within 1e-4 of a CPU copy, the step's device time
+   split into forward, backward and optimizer; then the offline trainer
+   on the card (a cut of the JAX package's product-scale run: 12
+   episodes over 96-2,048 pods, 8 incidents, 300 steps, holdout 2): the
+   loss falls, the checkpoint reloads leaf for leaf;
+8. both ``fused_tick`` entry points against their plain versions on a
    CPU copy, with the shipped weights: repeated and out-of-range delta
    entries with zero-width and all-padding slices, every slice padding,
    an empty delta; float32, bf16 operands, node blocks 64 and 2048 (equal
@@ -46,7 +64,7 @@ tick ``fused_tick`` with its two entry points ``fused_gnn_tick`` and
    0.05) with equal argmax; a quant table also within 1e-5 of the
    composed forward on the dequantized table and within 0.05 (bf16) / 0.1
    (int8) of the float32 table's probs; two launches ``torch.equal``;
-8. config 4: 2,000 full-mix churn events on a 10,000-pod cluster with
+9. config 4: 2,000 full-mix churn events on a 10,000-pod cluster with
    100 incidents, one ``dispatch()`` per 100-event tick and one
    ``rescore()`` at the end (bench.py's streaming loop), through the
    rules path and through the learned path once per tier (composed,
@@ -59,8 +77,17 @@ tick ``fused_tick`` with its two entry points ``fused_gnn_tick`` and
    state (config 4's resident shape, Pn 65,536) after the first tick and
    after the churn, as in 7; each tier's tick is then timed beside the
    composed tick at the same shape; the rules run adds 500 events
-   through ``tick_async`` + ``serve(newest=True)``;
-9. prints one ``{"kernels": [...]}`` line with each kernel's launches on
+   through ``tick_async`` + ``serve(newest=True)``; on the fused tier's
+   resident state after the churn, the fused tick's grads (its autograd
+   Function) within 1e-4 of the composed path's autograd on a CPU copy,
+   and ``fused_gnn_tick_dma`` refusing a gradient;
+10. ``OnlineLearner.run_once()`` on a fresh config-4 world: a resident
+   learned scorer serving random full-width params, a durable store with
+   rules-tier hypotheses and operator feedback confirming each injected
+   incident's scenario rule; harvest, ``learn_steps`` fine-tune steps, the
+   gate, and after a swap the next tick on generation 1 within 1e-5 of a
+   fresh forward with the candidate;
+11. prints one ``{"kernels": [...]}`` line with each kernel's launches on
    the main paths, its time, the plain version's time and its bound, then
    the nvidia-smi line, then ``{"ok": true, "device": {...}}`` last.
 
@@ -282,29 +309,33 @@ def kept_counts():
     """Launches inside are comparisons, not the path's: restore the
     counts afterwards."""
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import fused_tick as fk
-    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms, grad_w
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
-    saved = gms.launches, rf.launches, fk.launches, fk.dma_launches
+    saved = (gms.launches, rf.launches, fk.launches, fk.dma_launches,
+             grad_w.launches)
     try:
         yield
     finally:
-        gms.launches, rf.launches, fk.launches, fk.dma_launches = saved
+        (gms.launches, rf.launches, fk.launches, fk.dma_launches,
+         grad_w.launches) = saved
 
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import fused_tick as fk
-    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms, grad_w
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
     gms.launches = rf.launches = fk.launches = fk.dma_launches = 0
+    grad_w.launches = 0
 
 
 def read_counts() -> dict:
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import fused_tick as fk
-    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms, grad_w
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
     return {"rules_fold": rf.launches, "gms": gms.launches,
-            "fused_tick": fk.launches, "fused_tick_dma": fk.dma_launches}
+            "fused_tick": fk.launches, "fused_tick_dma": fk.dma_launches,
+            "grad_w": grad_w.launches}
 
 
 @contextlib.contextmanager
@@ -523,7 +554,7 @@ def run_learned_config3(snapshot, oracle: dict, dev) -> dict:
     return {"launches": launches, "timing": timing, "max_abs_err": err,
             "logit_max_abs_err": logit_err, "near_ties": near_ties,
             "oracle_agree": agree, "top1_counts": dict(top1),
-            "wall_ms": wall_ms}
+            "wall_ms": wall_ms, "args": args, "offs": offs, "pn": pn}
 
 
 # -- config 4: streaming ----------------------------------------------------
@@ -611,7 +642,8 @@ def resident_gms_check(scorer, what: str) -> tuple[tuple, float]:
 
 
 def streaming_world(num_pods: int, num_incidents: int, seed: int):
-    """bench.py's streaming world: (settings, cluster, builder)."""
+    """bench.py's streaming world: (settings, cluster, builder, [(incident,
+    scenario name)])."""
     from kubernetes_aiops_evidence_graph_tpu_torch.collectors import (
         collect_all, default_collectors)
     from kubernetes_aiops_evidence_graph_tpu_torch.config import load_settings
@@ -628,11 +660,13 @@ def streaming_world(num_pods: int, num_incidents: int, seed: int):
     sync_topology(cluster, builder.store)
     keys = sorted(cluster.deployments)
     names = sorted(SCENARIOS)
+    injected = []
     for i in range(num_incidents):
         inc = inject(cluster, names[i % len(names)], keys[(i * 7) % len(keys)], rng)
         builder.ingest(inc, collect_all(inc, default_collectors(cluster, settings),
                                         parallel=False))
-    return settings, cluster, builder
+        injected.append((inc, names[i % len(names)]))
+    return settings, cluster, builder, injected
 
 
 def churn_ticks(scorer, cluster, builder, stream, batch_size, check):
@@ -675,7 +709,8 @@ def run_streaming(num_pods: int = 10_000, num_incidents: int = 100,
     from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
         churn_events, stream_step)
 
-    settings, cluster, builder = streaming_world(num_pods, num_incidents, seed)
+    settings, cluster, builder, _ = streaming_world(num_pods, num_incidents,
+                                                    seed)
     scorer = StreamingScorer(builder.store, settings)
     scorer.rescore()
     stream = list(churn_events(
@@ -752,6 +787,9 @@ CHECKS = {
     "dma_int8_table": ("dma", None, 2048, "int8"),
 }
 QUANT_TOL = {"bfloat16": 0.05, "int8": 0.1}
+# a training step's grad leaves on the card against the CPU copy: max |d|
+# within this share of each leaf's largest entry
+GRAD_LEAF_LIMIT = 1e-5
 
 
 def shipped_params(dev):
@@ -1078,7 +1116,8 @@ def run_streaming_learned(tier: str = "composed", num_pods: int = 10_000,
     from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
         churn_events)
 
-    settings, cluster, builder = streaming_world(num_pods, num_incidents, seed)
+    settings, cluster, builder, _ = streaming_world(num_pods, num_incidents,
+                                                    seed)
     settings = dataclasses.replace(settings, **LEARNED_TIERS[tier])
     # the replay clock: deploy recency is a feature the GNN reads, so the
     # fresh rebuild must extract it against the same epoch
@@ -1145,6 +1184,8 @@ def run_streaming_learned(tier: str = "composed", num_pods: int = 10_000,
         out["shape"]["live_edges"] = timing["live_edges"]
         return out
     err = resident_fused_checks(scorer, tier, "after the churn")
+    if tier == "fused":
+        out["backward"] = fused_backward_check(scorer)
     check = {"fused": "fused", "dma": "dma_nb2048",
              "dma_int8": "dma_int8_table"}[tier]
     timing = tick_timing(scorer, check)
@@ -1152,6 +1193,528 @@ def run_streaming_learned(tier: str = "composed", num_pods: int = 10_000,
     out.update(timing=timing, max_abs_err=max(errs + [err]))
     out["shape"]["live_edges"] = timing["live_edges"]
     return out
+
+
+# -- training: the weight gradient, the message pass's backward, the step --
+
+# B5 at edge shapes: (caps, live, n, H, K, depth of w_rel, dst sorted,
+# compute dtype)
+GRAD_W_CASES = {
+    "zero-width and all-padding slices": (
+        (0, 64, 0, 128, 0, 64, 0, 0, 64), (0, 0, 0, 90, 0, 64, 0, 0, 7), 700,
+        64, 64, 9, True, None),
+    "num_rels above the slice count": ((64, 128, 64), (50, 128, 3), 500, 64,
+                                       64, 9, True, None),
+    "repeated src and dst": ((256, 192), (256, 150), 6, 64, 64, 2, False,
+                             None),
+    "unaligned offsets": ((5, 0, 17, 70, 1, 3, 200, 64, 9),
+                          (5, 0, 9, 70, 1, 0, 150, 64, 9), 700, 64, 64, 9,
+                          False, None),
+    "bf16 h": ((64, 128, 0, 64), (40, 128, 0, 3), 600, 64, 64, 4, True,
+               "bfloat16"),
+    "H != K (48 -> 64)": ((64, 128, 64), (60, 100, 64), 900, 48, 64, 3, False,
+                          None),
+}
+
+
+def grad_w_check(h, g, src, dst, mask, offs, num_rels: int, what: str,
+                 compute_dtype=None) -> tuple[float, float]:
+    """Hold grad_w against its plain version (ops/segment.gms_grad_w) on a
+    CPU copy: within 1e-5 of the result's scale, relations with no live
+    edge exactly zero, two launches equal bit for bit. Returns (max |d|,
+    max |d| / scale)."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import grad_w
+    from kubernetes_aiops_evidence_graph_tpu_torch.ops.segment import (
+        gms_grad_w)
+    with kept_counts():
+        got = grad_w.gms_grad_w(h, g, src, dst, mask, offs, num_rels,
+                                compute_dtype=compute_dtype)
+        again = grad_w.gms_grad_w(h, g, src, dst, mask, offs, num_rels,
+                                  compute_dtype=compute_dtype)
+        torch.cuda.synchronize()
+    want = gms_grad_w(*(t.cpu() for t in (h, g, src, dst, mask)), offs,
+                      num_rels, compute_dtype=compute_dtype)
+    got = got.cpu()
+    if not torch.equal(got, again.cpu()):
+        raise AssertionError(f"grad_w {what}: two launches differ")
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if got.shape != want.shape or err > 1e-5 * scale:
+        raise AssertionError(f"grad_w {what}: differs from the plain version "
+                             f"by {err} (scale {scale})")
+    m = mask.cpu().numpy()
+    for r in range(num_rels):
+        lo, hi = (offs[r], offs[r + 1]) if r < len(offs) - 1 else (0, 0)
+        if not m[lo:hi].any() and got[r].any():
+            raise AssertionError(f"grad_w {what}: relation {r} has no live "
+                                 "edge but a non-zero gradient")
+    log(f"grad_w == plain: {what} (N={h.shape[0]} H={h.shape[1]} "
+        f"K={g.shape[1]} E={src.shape[0]} R={num_rels} offsets={len(offs)}; "
+        f"max |d| {err:.3g} = {err / max(scale, 1e-30):.3g} of scale)")
+    return err, err / max(scale, 1e-30)
+
+
+def grad_w_edge_cases(dev) -> tuple[float, float]:
+    import torch
+    rng = np.random.default_rng(4)
+    err = rel = 0.0
+    for what, (caps, live, n, h, k, nr, srt, cdt) in GRAD_W_CASES.items():
+        (hmat, _, src, dst, mask), offs, n = synthetic_layout(
+            rng, caps, live, n, h, k, dev, srt)
+        g = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)
+                             ).to(dev)
+        e, r = grad_w_check(hmat, g, src, dst, mask, offs, nr, what, cdt)
+        err, rel = max(err, e), max(rel, r)
+    return err, rel
+
+
+def torch_grad_w_composition(h, g, src, dst, mask, offs, num_rels):
+    """The weight gradient as a composition of torch calls (the yardstick,
+    used nowhere in the port): per relation two index_select gathers and
+    one torch.mm."""
+    import torch
+    dw = torch.zeros((num_rels, h.shape[1], g.shape[1]), device=h.device)
+    for r in range(len(offs) - 1):
+        lo, hi = offs[r], offs[r + 1]
+        if hi > lo:
+            a = torch.index_select(h, 0, src[lo:hi]) * mask[lo:hi, None]
+            torch.mm(a.T, torch.index_select(g, 0, dst[lo:hi]), out=dw[r])
+    return dw
+
+
+def within_scale(got, want, what: str, limit: float = 1e-5
+                 ) -> tuple[float, float, float]:
+    """Hold a gradient to its reference within ``limit`` of the
+    reference's largest entry (an absolute limit would pass a gradient
+    whose entries are all below it, however wrong). Returns (max |d|,
+    max |d| / scale, scale)."""
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if got.shape != want.shape or err > limit * scale:
+        raise AssertionError(f"{what} differs from the plain version by "
+                             f"{err} = {err / max(scale, 1e-30):.3g} of its "
+                             f"scale {scale} (limit {limit} of scale)")
+    return err, err / max(scale, 1e-30), scale
+
+
+def gms_backward_config3(args: tuple, offs, n: int) -> dict:
+    """The message pass's backward at the config-3 layout (the layer-0 node
+    table, the shipped layer-0 weights): grads of ``(out * ct).sum()``
+    through the autograd Function (dh by gms on the src-CSR, dw by
+    grad_w) against the plain version's autograd on a CPU copy, each
+    within 1e-5 of its largest entry, dw non-zero; grad_w against its plain version there; then
+    timed: dh (the src-CSR and the gms launch on the transposed layout),
+    grad_w, its plain version and the torch composition. ``ct`` is the
+    cotangent of a mean over the N output rows (standard normal / N), the
+    scale a training loss gives: with a unit cotangent each ``dw`` entry
+    sums ~30,000 terms of size ~1, and float32 sums in two orders then
+    differ by ~1e-2 in entries that cancel to near zero."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms, grad_w
+    from kubernetes_aiops_evidence_graph_tpu_torch.ops.segment import (
+        gather_matmul_segment, gms_grad_w)
+    h, w_rel, src, dst, mask = (a.detach() for a in args)
+    nr, hid, k_out = w_rel.shape
+    ct = (torch.randn((n, k_out), generator=torch.Generator().manual_seed(5))
+          / n).to(h.device)
+    with kept_counts():
+        hh, ww = h.clone().requires_grad_(), w_rel.clone().requires_grad_()
+        plan = gms.make_plan(dst, mask, offs, n)
+        g0, w0 = gms.launches, grad_w.launches
+        out = gms.gather_matmul_segment(hh, ww, src, dst, mask, offs, n,
+                                        plan=plan)
+        dh, dw = torch.autograd.grad((out * ct).sum(), (hh, ww))
+        torch.cuda.synchronize()
+        launched = (gms.launches - g0, grad_w.launches - w0)
+    if launched != (2, 1) or len(plan._transposed) != 1:
+        raise AssertionError(f"gms backward: launches (gms, grad_w) "
+                             f"{launched}, src-CSRs {len(plan._transposed)}")
+    hc, wc = h.cpu().requires_grad_(), w_rel.cpu().requires_grad_()
+    cpu = [a.cpu() for a in (src, dst, mask)]
+    want = torch.autograd.grad((gather_matmul_segment(
+        hc, wc, *cpu, offs, n) * ct.cpu()).sum(), (hc, wc))
+    errs, rel = {}, {}
+    for name, a, b in (("dh", dh, want[0]), ("dw", dw, want[1])):
+        errs[name], rel[name], _ = within_scale(
+            a.cpu(), b, f"gms backward at config 3: {name}")
+    if not dw.abs().sum() > 0:
+        raise AssertionError("gms backward at config 3: dw is zero")
+    gw_err, gw_rel = grad_w_check(h, ct, src, dst, mask, offs, nr,
+                                  "config-3 layout")
+    w_t = w_rel.transpose(1, 2)
+    with kept_counts():
+        t = timed(lambda: grad_w.gms_grad_w(h, ct, src, dst, mask, offs, nr),
+                  lambda: gms_grad_w(h, ct, src, dst, mask, offs, nr))
+        t["ms_by_kernel"] = {
+            (re.findall(r"\w+_kernel", name) or [name])[0]: ms
+            for name, ms in device_ms(
+                lambda: grad_w.gms_grad_w(h, ct, src, dst, mask, offs, nr),
+                by_kernel=True).items()}
+        t["composition_ms"] = device_ms(lambda: torch_grad_w_composition(
+            h, ct, src, dst, mask, offs, nr))
+        t["dh_ms"] = device_ms(lambda: gms._launch(
+            ct, w_t, dst, mask, offs, n, torch.float32,
+            gms.make_plan(src, mask, offs, n)))
+        t["src_csr_ms"] = device_ms(lambda: gms.make_plan(src, mask, offs, n))
+        comp = torch_grad_w_composition(h, ct, src, dst, mask, offs, nr)
+    t["composition_max_abs_err"] = float((comp.cpu() - dw.cpu()).abs().max())
+    nbytes, ops = grad_w.bound(src.cpu().numpy(), dst.cpu().numpy(),
+                               mask.cpu().numpy(), offs, hid, k_out, nr)
+    t.update(bound_of(nbytes, ops))
+    t.update(dh_max_abs_err=errs["dh"], dw_max_abs_err=errs["dw"],
+             max_abs_err=gw_err, max_rel_err=gw_rel,
+             live_edges=ops // (2 * hid * k_out))
+    t.update(dh_rel_err=rel["dh"], dw_rel_err=rel["dw"])
+    log(f"config 3 gms backward: dh, dw == plain autograd (max |d| "
+        f"{errs['dh']:.3g}, {errs['dw']:.3g}; {rel['dh']:.3g}, "
+        f"{rel['dw']:.3g} of scale); timing {t}")
+    return t
+
+
+def _lookup_backward_repeats(table, idx, lookup) -> bool:
+    """Whether two backward passes of ``lookup(table, idx)`` give the same
+    gradient bit for bit (lookups whose backward adds rows by index)."""
+    import torch
+    g = torch.randn((idx.shape[0], table.shape[1]),
+                    generator=torch.Generator().manual_seed(9)
+                    ).to(table.device)
+    grads = []
+    for _ in range(2):
+        t = table.detach().clone().requires_grad_()
+        grads.append(torch.autograd.grad((lookup(t, idx.long()) * g).sum(),
+                                         t)[0])
+    return bool(torch.equal(*grads))
+
+
+def run_train_step_config3(snapshot, oracle: dict, dev) -> dict:
+    """One training step at config 3, full width, from the shipped params,
+    the labels the CPU rules oracle's top-1 per incident: loss, backward
+    and Adam through make_train_step (6 gms and 3 grad_w launches); the
+    loss against a CPU copy through the plain versions (rtol/atol 1e-4),
+    every grad leaf within GRAD_LEAF_LIMIT of its largest entry; the step's device time split into forward, backward
+    and optimizer; whether two steps from one state give equal params."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.ruleset import (
+        RULE_INDEX)
+    labels = [RULE_INDEX.get(oracle.get(nid), gnn.NUM_CLASSES - 1)
+              for nid in snapshot.incident_ids]
+    batch = gnn.snapshot_batch(snapshot, np.asarray(labels, np.int32))
+    offs = tuple(snapshot.rel_offsets)
+    b_dev, b_cpu = gnn.batch_to(batch, dev), gnn.batch_to(batch, "cpu")
+    params0 = shipped_params(dev)
+    arrays = lambda b: [b[k] for k in gnn.TRAIN_ARRAYS]   # noqa: E731
+    step = gnn.make_train_step(gnn.adam(3e-3))
+
+    reset_counts()
+    params, _, loss = step(params0, None, b_dev, rel_offsets=offs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    layers = len(params0["layers"])
+    if counts["gms"] != 2 * layers or counts["grad_w"] != layers:
+        raise AssertionError(f"config 3 train step: launches {counts}, "
+                             f"expected {2 * layers} gms and {layers} grad_w")
+
+    def loss_and_grads(p0, b):
+        p = gnn.trainable(p0)
+        lo = gnn.loss_fn(p, *arrays(b), rel_offsets=offs)
+        return lo.detach().cpu(), [g.cpu() for g in torch.autograd.grad(
+            lo, gnn.leaves(p))]
+    with kept_counts():
+        ld, gd = loss_and_grads(params0, b_dev)
+    lc, gc = loss_and_grads(params_to(params0, "cpu"), b_cpu)
+    names = list(gnn.flat_params(params0))
+    errs = {"loss": float((ld - lc).abs())}
+    if not (torch.allclose(ld, lc, rtol=1e-4, atol=1e-4)
+            and torch.allclose(loss.cpu(), lc, rtol=1e-4, atol=1e-4)):
+        raise AssertionError(f"config 3 train step: loss {float(ld)} on the "
+                             f"card, {float(lc)} on the CPU")
+    rel, scales = {}, {}
+    for name, a, b in zip(names, gd, gc):
+        errs[name], rel[name], scales[name] = within_scale(
+            a, b, f"config 3 train step: grad {name}", GRAD_LEAF_LIMIT)
+    if not all(torch.isfinite(v).all() for v in gnn.leaves(params)):
+        raise AssertionError("config 3 train step: non-finite params")
+
+    with kept_counts():
+        p = gnn.trainable(params0)
+        opt = torch.optim.Adam(gnn.leaves(p), lr=3e-3)
+
+        def fwd():
+            return gnn.loss_fn(p, *arrays(b_dev), rel_offsets=offs)
+
+        def fwd_bwd():
+            opt.zero_grad(set_to_none=True)
+            fwd().backward()
+        fwd_ms = device_ms(fwd, iters=10)
+        fb_ms = device_ms(fwd_bwd, iters=10)
+        opt_ms = device_ms(opt.step, iters=10)
+        by_kernel = sorted(device_ms(fwd_bwd, iters=5, by_kernel=True).items(),
+                           key=lambda kv: -kv[1])[:8]
+        # the kind lookup's forward + backward three ways: the index form
+        # (kind_emb[node_kind]), F.embedding, and the one-hot product that
+        # gnn.forward uses
+        kind = b_dev["node_kind"].long()
+        kinds = torch.arange(params0["kind_emb"].shape[0], device=dev)
+        g = torch.randn((kind.shape[0], params0["kind_emb"].shape[1]),
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+
+        def lookup_bwd(lookup):
+            t = params0["kind_emb"].detach().clone().requires_grad_()
+            return torch.autograd.grad((lookup(t) * g).sum(), t)[0]
+        lookup_ms = {
+            "index": device_ms(lambda: lookup_bwd(lambda t: t[kind]), iters=5),
+            "embedding": device_ms(lambda: lookup_bwd(
+                lambda t: torch.nn.functional.embedding(kind, t)), iters=5),
+            "one_hot": device_ms(lambda: lookup_bwd(
+                lambda t: (kind[:, None] == kinds).float() @ t), iters=5)}
+        state = step(params0, None, b_dev, rel_offsets=offs)[:2]
+        wall_ms = cuda_ms(lambda: step(*state, b_dev, rel_offsets=offs),
+                          iters=10, warmup=2)
+        # two steps from one state: equal params?
+        runs = [gnn.flat_params(step(params0, None, b_dev,
+                                     rel_offsets=offs)[0]) for _ in range(2)]
+        differ = [k for k in names if not torch.equal(runs[0][k], runs[1][k])]
+        grads2 = loss_and_grads(params0, b_dev)[1]
+        grads_differ = [k for k, a, b in zip(names, gd, grads2)
+                        if not torch.equal(a, b)]
+    kinds = torch.arange(params0["kind_emb"].shape[0], device=dev)
+    index_ops = {
+        "one_hot(node_kind) @ kind_emb": _lookup_backward_repeats(
+            params0["kind_emb"], b_dev["node_kind"],
+            lambda t, i: (i[:, None] == kinds).float() @ t),
+        "embedding(node_kind, kind_emb)": _lookup_backward_repeats(
+            params0["kind_emb"], b_dev["node_kind"],
+            lambda t, i: torch.nn.functional.embedding(i, t)),
+        "h[incident_nodes]": _lookup_backward_repeats(
+            torch.randn((b_dev["features"].shape[0], 64), device=dev),
+            b_dev["incident_nodes"], lambda t, i: t[i]),
+    }
+    out = {"loss": float(lc), "launches": counts,
+           "max_abs_err": max(errs.values()), "errs": errs,
+           "grad_rel_errs": rel, "grad_scales": scales,
+           "forward_ms": fwd_ms, "backward_ms": fb_ms - fwd_ms,
+           "optimizer_ms": opt_ms, "step_ms": fb_ms + opt_ms,
+           "step_wall_ms": wall_ms,
+           "step_ms_by_kernel": dict((k[:80], v) for k, v in by_kernel),
+           "kind_emb_lookup_fwd_bwd_ms": lookup_ms,
+           "params_bit_equal_over_two_steps": not differ,
+           "params_differing": differ, "grads_differing": grads_differ,
+           "lookup_backward_bit_equal": index_ops,
+           "labels": dict(collections.Counter(labels))}
+    log(f"config 3 train step: {counts}, loss {float(lc):.6f} == CPU (max "
+        f"|d| {out['max_abs_err']:.3g}); grad leaves max |d| / scale "
+        f"{ {k: f'{v:.3g}' for k, v in rel.items()} }, scales "
+        f"{ {k: f'{v:.3g}' for k, v in scales.items()} }; device ms forward {fwd_ms:.4f}, "
+        f"backward {fb_ms - fwd_ms:.4f}, optimizer {opt_ms:.4f}; wall "
+        f"{wall_ms:.3f} ms; top kernels of forward + backward "
+        f"{out['step_ms_by_kernel']}; kind_emb lookup forward + backward "
+        f"{lookup_ms}; params differing over two steps {differ}, grads "
+        f"{grads_differ}; lookup backward bit-equal {index_ops}")
+    return out
+
+
+def run_offline_train(dev) -> dict:
+    """Offline train() on the card, a cut of the JAX package's
+    product-scale run (BASELINE.md: 130 episodes over 96-2048 pods, 8
+    incidents, 2,000 steps, holdout 30): 12 episodes, 300 steps, holdout
+    2. The loss must fall; the checkpoint reloads through the serving
+    loader with equal leaves."""
+    import tempfile
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_backend import (
+        load_validated_checkpoint)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.train import (
+        save_checkpoint, train)
+    cut = dict(episodes=12, steps=300, num_pods=[96, 256, 512, 1024, 2048],
+               num_incidents=8, eval_holdout=2, seed=0)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train(device=dev, **cut)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    hist = out["metrics"]["history"]
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"offline train: the loss did not fall {hist}")
+    if counts["grad_w"] != 3 * cut["steps"] or counts["gms"] < 6 * cut["steps"]:
+        raise AssertionError(f"offline train: launches {counts}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(os.path.join(tmp, "gnn"), out["params"],
+                               out["config"])
+        back = gnn.flat_params(load_validated_checkpoint(path))
+    mine = {k: v.cpu().numpy() for k, v in gnn.flat_params(out["params"]).items()}
+    if back.keys() != mine.keys() or not all(
+            np.array_equal(back[k], mine[k]) for k in mine):
+        raise AssertionError("offline train: the checkpoint does not reload "
+                             "leaf for leaf")
+    res = {"cut": cut, "launches": counts, "wall_s": wall,
+           "holdout_accuracy": out["metrics"]["holdout_accuracy"],
+           "train_accuracy": out["metrics"]["train_accuracy"],
+           "first_loss": hist[0]["loss"], "final_loss": hist[-1]["loss"],
+           **out["timing"]}
+    log(f"offline train on the card: {res}")
+    return res
+
+
+def fused_backward_check(scorer) -> dict:
+    """The fused tick's backward on the resident state (config 4, after
+    the churn): grads of ``(logits * ct).sum()`` through fused_gnn_tick on
+    the card against the composed path's autograd on a CPU copy (plain
+    versions), rtol/atol 1e-4 and each leaf within 1e-4 of its largest
+    entry; fused_gnn_tick_dma with a param requiring grad raises."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import fused_tick as fk
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    state = resident_state(scorer, np.random.default_rng(11))
+    dev = scorer.device
+    kw = dict(pk=state["pk"], ek=state["ek"], pi=state["pi"],
+              rel_offsets=state["offs"])
+    classes = int(state["params"]["head_b"].shape[0])
+    ct = torch.randn((state["pi"], classes),
+                     generator=torch.Generator().manual_seed(12))
+    with kept_counts():
+        p = gnn.trainable(params_to(state["params"], dev))
+        feats = state["features"].to(dev).requires_grad_()
+        m = [t.clone().to(dev) for t in state["mirrors"]]
+        before = read_counts()
+        out = fk.fused_gnn_tick(p, feats, *m, state["ints"].to(dev), **kw)
+        grads = torch.autograd.grad((out[6] * ct.to(dev)).sum(),
+                                    [feats] + gnn.leaves(p))
+        torch.cuda.synchronize()
+        after = read_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        h = [torch.zeros((state["features"].shape[0], p["embed_b"].shape[0]),
+                         device=dev) for _ in range(2)]
+        try:
+            fk.fused_gnn_tick_dma(p, feats, *m, state["ints"].to(dev), *h,
+                                  **kw)
+        except RuntimeError as exc:
+            raised = "no backward" in str(exc)
+        else:
+            raised = False
+    if not raised:
+        raise AssertionError("fused_gnn_tick_dma did not refuse a gradient")
+    pc = gnn.trainable(state["params"])
+    fc = state["features"].clone().requires_grad_()
+    outc = fk.composed_tick(pc, fc, *[t.clone() for t in state["mirrors"]],
+                         state["ints"], **kw)
+    want = torch.autograd.grad((outc[2] * ct).sum(), [fc] + gnn.leaves(pc))
+    names = ["features"] + list(gnn.flat_params(pc))
+    err, rel = 0.0, {}
+    for name, a, b in zip(names, grads, want):
+        a = a.cpu()
+        err = max(err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"fused tick backward: {name} differs from "
+                                 "the composed path's autograd by "
+                                 f"{float((a - b).abs().max())}")
+        rel[name] = within_scale(a, b, f"fused tick backward: {name}",
+                                 1e-4)[1]
+    log(f"config 4 fused tick backward: grads == composed autograd (max |d| "
+        f"{err:.3g}; max |d| / scale per leaf "
+        f"{ {k: f'{v:.3g}' for k, v in rel.items()} }); launches in the "
+        f"check {launched}; the streamed tick refused a gradient")
+    return {"max_abs_err": err, "max_rel_err": max(rel.values()),
+            "launches": launched, "dma_raised": raised}
+
+
+def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
+                       seed: int = 0) -> dict:
+    """OnlineLearner.run_once() on the config-4 world: a resident learned
+    scorer on the card serving weak (random, full-width) params; a durable
+    store with rules-tier hypotheses and operator feedback confirming each
+    injected incident's scenario rule; harvest, learn_steps fine-tune
+    steps over the config-4 episode and the simulator mix, the gate, and
+    after a swap the scorer holding the candidate's leaves, and the next
+    tick on generation 1 equal to a fresh forward with the candidate
+    (1e-5)."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph.snapshot import (
+        build_snapshot)
+    from kubernetes_aiops_evidence_graph_tpu_torch.learn import OnlineLearner
+    from kubernetes_aiops_evidence_graph_tpu_torch.models import (
+        Hypothesis, HypothesisCategory, HypothesisFeedback, HypothesisSource)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
+        GnnStreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator import SCENARIOS
+    from kubernetes_aiops_evidence_graph_tpu_torch.storage import Database
+    settings, cluster, builder, injected = streaming_world(
+        num_pods, num_incidents, seed)
+    settings = dataclasses.replace(settings, learn_min_episodes=1,
+                                   learn_holdout_every=0)
+    now_s = cluster.now.timestamp()
+    weak = gnn.init_params(torch.Generator().manual_seed(123), device=dev)
+    scorer = GnnStreamingScorer(builder.store, settings, params=weak,
+                                now_s=now_s, device=dev)
+    scorer.rescore()
+    db = Database(":memory:")
+    for inc, name in injected:
+        rule = SCENARIOS[name].expected_rule
+        db.create_incident(inc)
+        h = Hypothesis(incident_id=inc.id,
+                       category=HypothesisCategory.RESOURCE_EXHAUSTION,
+                       title=rule, confidence=0.95, rank=1, rule_id=rule,
+                       backend="tpu",
+                       generated_by=HypothesisSource.RULES_ENGINE)
+        db.insert_hypotheses([h])
+        db.insert_feedback(HypothesisFeedback(
+            hypothesis_id=h.id, was_correct=True, submitted_by="operator"))
+    learner = OnlineLearner(db, [scorer], settings=settings, now_s=now_s)
+    tune_s, candidates = [], []
+    train_candidate = learner.train_candidate
+
+    def timed_candidate():
+        t = time.perf_counter()
+        res = train_candidate()
+        torch.cuda.synchronize()
+        tune_s.append(time.perf_counter() - t)
+        candidates.append(res["params"])
+        return res
+    learner.train_candidate = timed_candidate
+    reset_counts()
+    t0 = time.perf_counter()
+    out = learner.run_once()
+    torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t0
+    counts = read_counts()
+    steps = int(settings.learn_steps)
+    if not (out["harvested"] >= 1 and out["trained"]
+            and out["train_steps"] == steps and "gate" in out):
+        raise AssertionError(f"online learner: {out}")
+    if counts["grad_w"] < 3 * steps:
+        raise AssertionError(f"online learner: launches {counts} for "
+                             f"{steps} fine-tune steps")
+    res = {"harvested": out["harvested"], "train_steps": out["train_steps"],
+           "final_loss": out["final_loss"], "gate": out["gate"],
+           "swapped": out["swapped"], "launches": counts,
+           "cycle_s": cycle_s, "finetune_s": tune_s[0],
+           "finetune_ms_per_step": tune_s[0] / steps * 1e3}
+    if out["swapped"]:
+        served = scorer.rescore()
+        if served["params_generation"] != 1 or out["generation"] != 1:
+            raise AssertionError("online learner: the next tick does not "
+                                 "serve generation 1")
+        cand = gnn.flat_params(candidates[0])
+        held = gnn.flat_params(scorer._params)
+        if cand.keys() != held.keys() or not all(
+                torch.equal(cand[k].to(held[k].device), held[k]) for k in cand):
+            raise AssertionError("online learner: the scorer does not hold "
+                                 "the candidate after the swap")
+        snap = build_snapshot(builder.store, settings, now_s=now_s)
+        with torch.no_grad():
+            logits = gnn.forward_batch(candidates[0], gnn.snapshot_batch(snap))
+        probs = torch.softmax(logits, dim=-1).cpu().numpy()
+        row = {nid: i for i, nid in enumerate(snap.incident_ids)}
+        want = probs[[row[i] for i in served["incident_ids"]]]
+        err = float(np.abs(served["probs"] - want).max())
+        if not np.allclose(served["probs"], want, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"online learner: generation 1 probs differ "
+                                 f"from a fresh forward by {err}")
+        res["probs_vs_fresh_forward_max_abs_err"] = err
+    log(f"online learner on the config-4 world: {res}")
+    return res
 
 
 def main() -> int:
@@ -1280,10 +1843,20 @@ def main() -> int:
     learned3 = run_learned_config3(snapshot, oracle, dev)
     gms_err = max(gms_err, learned3["max_abs_err"])
 
-    # -- 7. fused_tick vs plain at edge shapes ------------------------------
+    # -- 7. training at config 3: grad_w, the message pass's backward, a
+    # train step, then the offline trainer -------------------------------
+    gw_err, gw_rel = grad_w_edge_cases(dev)
+    bwd3 = gms_backward_config3(learned3["args"], learned3["offs"],
+                                learned3["pn"])
+    gw_err, gw_rel = max(gw_err, bwd3["max_abs_err"]), max(
+        gw_rel, bwd3["max_rel_err"])
+    step3 = run_train_step_config3(snapshot, oracle, dev)
+    offline = run_offline_train(dev)
+
+    # -- 8. fused_tick vs plain at edge shapes ------------------------------
     fused_err = fused_edge_cases(dev)
 
-    # -- 8. config 4 streaming, both backends, the learned one per tier ----
+    # -- 9. config 4 streaming, both backends, the learned one per tier ----
     eps, tick_ms, launches_c4, ticks, c4_shape, c4_timing, c4_err = \
         run_streaming()
     max_err = max(max_err, c4_err)
@@ -1293,6 +1866,13 @@ def main() -> int:
     fused_err = max([fused_err] + [r["max_abs_err"] for r in tiers.values()])
     rules_learned = {f"config4_learned_{t}": r["rules_fold_launches"]
                      for t, r in {"composed": learned4, **tiers}.items()}
+
+    # -- 10. online learning on the config-4 world -------------------------
+    online = run_online_learner(dev)
+    rules_learned["config4_online_learner"] = online["launches"]["rules_fold"]
+    train_paths = {"config3_train_step": step3["launches"],
+                   "offline_train": offline["launches"],
+                   "config4_online_learner": online["launches"]}
 
     kernels = [{
         "name": "rules_fold", "route": "cuda",
@@ -1324,9 +1904,11 @@ def main() -> int:
         "source": "kubernetes_aiops_evidence_graph_tpu_torch/kernels/gms.cu",
         "replaces": "kubernetes_aiops_evidence_graph_tpu/ops/"
                     "pallas_segment.py:152 (_gms_kernel)",
-        "launches": learned3["launches"] + learned4["launches"],
+        "launches": learned3["launches"] + learned4["launches"] + sum(
+            c["gms"] for c in train_paths.values()),
         "launches_by_path": {"config3_learned": learned3["launches"],
-                             "config4_learned": learned4["launches"]},
+                             "config4_learned": learned4["launches"],
+                             **{k: c["gms"] for k, c in train_paths.items()}},
         "config4_ticks": learned4["ticks"],
         "max_abs_err": gms_err,
         "ms": learned3["timing"]["ms"],
@@ -1386,6 +1968,31 @@ def main() -> int:
                 "ms", "plain_ms", "composed_ms", "bound_ms", "bound_by")}
                 for r in runs},
         })
+    kernels.append({
+        "name": "grad_w", "route": "cuda",
+        "source": "kubernetes_aiops_evidence_graph_tpu_torch/kernels/grad_w.cu",
+        "replaces": "kubernetes_aiops_evidence_graph_tpu/ops/"
+                    "pallas_segment.py:292 (_grad_w_kernel, launched by "
+                    "_gms_grad_w :314; pallas_call :356)",
+        "launches": sum(c["grad_w"] for c in train_paths.values()),
+        "launches_by_path": {k: c["grad_w"] for k, c in train_paths.items()},
+        "max_abs_err": gw_err, "max_rel_err": gw_rel,
+        "ms": bwd3["ms"], "plain_ms": bwd3["plain_ms"],
+        "bound_ms": bwd3["bound_ms"], "bound_by": bwd3["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the per-relation "
+                        "weight gradient; composition_ms is index_select x 2 "
+                        "+ one torch.mm per relation on the same inputs",
+        "composition_ms": bwd3["composition_ms"],
+        "timed_by": bwd3["timed_by"], "ms_per_call": bwd3["ms_per_call"],
+        "plain_ms_per_call": bwd3["plain_ms_per_call"],
+        "ms_by_kernel": bwd3["ms_by_kernel"],
+        "bound_bytes": bwd3["bound_bytes"], "bound_ops": bwd3["bound_ops"],
+        "config3_shape": {"Pn": snapshot.padded_nodes,
+                          "Pe": snapshot.padded_edges,
+                          "live_edges": bwd3["live_edges"]},
+        "gms_dh_ms": bwd3["dh_ms"], "src_csr_ms": bwd3["src_csr_ms"],
+    })
     log(f"config 4: rules {eps:.1f} events/s, dispatch p50 {tick_ms:.3f} ms; "
         f"learned {learned4['events_per_s']:.1f} events/s, dispatch p50 "
         f"{learned4['dispatch_p50_ms']:.3f} ms; total "
@@ -1416,7 +2023,26 @@ def main() -> int:
         **{f"config4_learned_{t}_tick_ms": r["timing"]["ms"]
            for t, r in tiers.items()},
         "config4_learned_composed_tick_ms":
-            tiers["fused"]["timing"]["composed_ms"]}))
+            tiers["fused"]["timing"]["composed_ms"],
+        "config3_gms_backward_dh_ms": bwd3["dh_ms"],
+        "config3_gms_backward_src_csr_ms": bwd3["src_csr_ms"],
+        "config3_grad_w_ms": bwd3["ms"],
+        "config3_grad_w_composition_ms": bwd3["composition_ms"],
+        "config3_train_step": {k: step3[k] for k in (
+            "loss", "forward_ms", "backward_ms", "optimizer_ms", "step_ms",
+            "step_wall_ms", "step_ms_by_kernel", "kind_emb_lookup_fwd_bwd_ms",
+            "max_abs_err", "params_bit_equal_over_two_steps",
+            "params_differing", "grads_differing",
+            "lookup_backward_bit_equal")},
+        "offline_train": {k: offline[k] for k in (
+            "holdout_accuracy", "train_accuracy", "first_loss", "final_loss",
+            "steps_per_s", "train_s", "data_s", "eval_s", "wall_s")},
+        "config4_fused_tick_backward_max_abs_err":
+            tiers["fused"]["backward"]["max_abs_err"],
+        "config4_online_learner": {k: online.get(k) for k in (
+            "harvested", "train_steps", "final_loss", "gate", "swapped",
+            "cycle_s", "finetune_s", "finetune_ms_per_step",
+            "probs_vs_fresh_forward_max_abs_err")}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

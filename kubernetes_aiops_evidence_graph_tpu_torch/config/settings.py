@@ -67,6 +67,36 @@ class Settings:
     # (ops/fused_tick.quantize_features). Only read when gnn_tick_dma is on
     gnn_feature_quant: str = ""
 
+    # --- online learning (learn/) ---
+    # harvest production labels, fine-tune a candidate from the serving
+    # params, gate it on a holdout, hot-swap it into the resident scorers
+    learn_enabled: bool = False
+    learn_interval_s: float = 30.0       # background loop cadence
+    learn_steps: int = 120               # fine-tune steps per cycle
+    learn_lr: float = 1e-3
+    # proximal anchor: the fine-tune loss carries 0.5*w*||theta - serving||^2
+    learn_anchor_weight: float = 1e-3
+    learn_min_episodes: int = 2          # buffer floor before training
+    learn_buffer_cap: int = 64           # dedup'd replay buffer episodes
+    # simulator episodes mixed into every fine-tune, and the simulator
+    # holdout suite the gate evaluates against
+    learn_sim_episodes: int = 4
+    learn_sim_holdout: int = 2
+    learn_sim_pods: int = 96
+    learn_sim_incidents: int = 6
+    # every Nth harvested production episode joins the gate's holdout
+    learn_holdout_every: int = 4
+    # rules-tier top-1 at >= learn_weak_confidence labels incidents that
+    # got no operator feedback and no verification outcome
+    learn_weak_labels: bool = True
+    learn_weak_confidence: float = 0.9
+    # > 1 (a data-parallel fine-tune) is not ported yet and raises
+    learn_mesh_shards: int = 1
+    # hold one loss + grads through the params' device (the kernels, on the
+    # card) against a CPU copy through the plain versions before the
+    # fine-tune; a mismatch raises (learn/trainer.check_grads_parity)
+    learn_pallas_grads: bool = False
+
     # --- snapshot padding ladders (graph/snapshot.py; rungs in ladders.py)
     node_bucket_sizes: tuple = _ladders.NODE_BUCKET_SIZES
     incident_bucket_sizes: tuple = _ladders.INCIDENT_BUCKET_SIZES
@@ -90,6 +120,8 @@ def load_settings(**overrides: Any) -> Settings:
             kwargs[f.name] = raw.strip().lower() in ("1", "true", "yes", "on")
         elif isinstance(f.default, int):
             kwargs[f.name] = int(raw)
+        elif isinstance(f.default, float):
+            kwargs[f.name] = float(raw)
         elif isinstance(f.default, tuple):
             kwargs[f.name] = _parse_buckets(raw)
         else:

@@ -22,7 +22,7 @@ from pathlib import Path
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("rules_fold", "gms", "fused_tick")
+SOURCES = ("rules_fold", "gms", "fused_tick", "grad_w")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

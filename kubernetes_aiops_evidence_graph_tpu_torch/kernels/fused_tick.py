@@ -19,6 +19,16 @@ updates, and the readout. On CPU tensors each runs its plain version,
 ``chip_smoke.py`` holds the kernels against on the card. There is no
 fallback from one to the other.
 
+The fused tick is differentiable, as the JAX package's ``_fused_vjp``
+makes it: when grad mode is on and a param, ``features``,
+``nmask`` or ``emask`` requires a gradient, the launch runs inside a
+``torch.autograd.Function`` whose backward recomputes
+:func:`composed_tick` (through ``kernels/gms``'s own backward)
+and pulls the cotangents of ``nmask``, ``emask``, ``logits`` and ``probs``
+into those inputs. The streamed tick has no backward, in JAX as here: it
+raises when a gradient is wanted, rather than return a result autograd
+cannot see through.
+
 Bound (:func:`bound`): float32 operations at the learned path's widths.
 """
 from __future__ import annotations
@@ -29,9 +39,11 @@ import torch
 
 from ..graph.schema import EntityKind
 from ..ops.fused_tick import (check_layout, check_quant, dma_node_block,
-                              dma_tick_traffic_floor, fused_gnn_tick_dma_plain,
-                              fused_gnn_tick_plain)
+                              dma_tick_traffic_floor,
+                              fused_gnn_tick_dma_plain, fused_gnn_tick_plain,
+                              scatter_delta, split_ints)
 from ..ops.segment import as_dtype
+from ..rca import gnn
 from . import gms
 
 launches = 0
@@ -184,6 +196,105 @@ def _launch(params, features, mirrors, ints, h_a, h_b, pk, ek, pi, offs,
     return logits, probs
 
 
+def _fused_forward(params, features, mirrors, ints, pk, ek, pi, offs,
+                   compute_dtype) -> tuple:
+    """(logits, probs) of one fused tick, the mirrors scattered in place:
+    the plain version on the CPU, the kernels on the card."""
+    if features.device.type == "cpu":
+        return fused_gnn_tick_plain(
+            params, features, *mirrors, ints, pk=pk, ek=ek, pi=pi,
+            rel_offsets=offs, compute_dtype=compute_dtype)[6:]
+    hid = int(params["embed_b"].shape[0])
+    h = [torch.empty((features.shape[0], hid), dtype=torch.float32,
+                     device=features.device) for _ in range(2)]
+    return _launch(params, features, mirrors, ints, *h, pk, ek, pi, offs,
+                   compute_dtype, _ROW_TILE, None, None, dma=False)
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def composed_tick(params, features, kind, nmask, esrc, edst, erel, emask,
+                  ints, *, pk: int, ek: int, pi: int, rel_offsets,
+                  compute_dtype=None) -> tuple:
+    """The fused tick as a composition of differentiable ops, the path its
+    backward recomputes: the packed delta scattered into COPIES of the six
+    mirrors (the inputs are not touched), ``gnn.forward`` over them (on the
+    card through ``kernels/gms``'s autograd Function) and the masked
+    softmax. Returns ``(nmask', emask', logits, probs)``, differentiable in
+    ``params``, ``features``, ``nmask`` and ``emask``; ``compute_dtype``
+    has ``gnn.forward``'s meaning (the message pass and self transform)."""
+    d = split_ints(ints, pk, ek, pi)
+    mirrors = [t.clone() for t in (kind, nmask, esrc, edst, erel, emask)]
+    scatter_delta(d, *mirrors)
+    kind2, nm2, esrc2, edst2, erel2, em2 = mirrors
+    logits = gnn.forward(params, features, kind2, nm2, esrc2, edst2, erel2,
+                         em2, d["inc_nodes"], rel_offsets=rel_offsets,
+                         compute_dtype=compute_dtype)
+    probs = torch.softmax(logits, dim=-1) * d["inc_mask"].float()[:, None]
+    return nm2, em2, logits, probs
+
+
+
+class _FusedTickFunction(torch.autograd.Function):
+    """The fused tick on the card with its backward (module docstring).
+
+    The kernel scatters the delta into the caller's mirrors IN PLACE, so
+    the pre-tick mirrors that the JAX package keeps as residuals are gone.
+    The backward recomputes from the POST-tick mirrors with the same
+    ``ints``, and that is exact: the scatter is a set (last entry wins,
+    out-of-range entries drop), so applying it again to its own result
+    changes nothing, and the positions it overwrote get no gradient from
+    the pre-tick ``nmask``/``emask`` either way (their values were
+    replaced)."""
+
+    @staticmethod
+    def forward(ctx, meta, features, kind, nmask, esrc, edst, erel, emask,
+                ints, *leaves):
+        keys, pk, ek, pi, offs, compute_dtype = meta
+        mirrors = (kind, nmask, esrc, edst, erel, emask)
+        logits, probs = _fused_forward(
+            gnn.unflat_params(dict(zip(keys, leaves))), features, mirrors,
+            ints, pk, ek, pi, offs, compute_dtype)
+        ctx.mark_dirty(*mirrors)
+        ctx.mark_non_differentiable(kind, esrc, edst, erel)
+        ctx.save_for_backward(features, *mirrors, ints, *leaves)
+        ctx.meta = meta
+        return (*mirrors, logits, probs)
+
+    @staticmethod
+    def backward(ctx, _g_kind, g_nmask, _g_esrc, _g_edst, _g_erel, g_emask,
+                 g_logits, g_probs):
+        features, kind, nmask, esrc, edst, erel, emask, ints, *leaves = \
+            ctx.saved_tensors
+        keys, pk, ek, pi, offs, compute_dtype = ctx.meta
+        with torch.enable_grad():
+            p_in = [t.detach().requires_grad_(True) for t in leaves]
+            f_in = features.detach().requires_grad_(True)
+            nm_in = nmask.detach().clone().requires_grad_(True)
+            em_in = emask.detach().clone().requires_grad_(True)
+            outs = composed_tick(
+                gnn.unflat_params(dict(zip(keys, p_in))), f_in, kind, nm_in,
+                esrc, edst, erel, em_in, ints, pk=pk, ek=ek, pi=pi,
+                rel_offsets=offs, compute_dtype=compute_dtype)
+            pairs = [(o, g) for o, g in zip(outs, (g_nmask, g_emask,
+                                                     g_logits, g_probs))
+                     if g is not None]
+            inputs = [f_in, nm_in, em_in, *p_in]
+            grads = (torch.autograd.grad([o for o, _ in pairs], inputs,
+                                         [g for _, g in pairs],
+                                         allow_unused=True)
+                     if pairs else [None] * len(inputs))
+        d_f, d_nm, d_em, *d_p = grads
+        need = ctx.needs_input_grad
+        return (None, d_f if need[1] else None, None,
+                d_nm if need[3] else None, None, None, None,
+                d_em if need[7] else None, None,
+                *(g if n else None for g, n in zip(d_p, need[9:])))
+
+
 def fused_gnn_tick(params, features, kind, nmask, esrc, edst, erel, emask,
                    ints, *, pk: int, ek: int, pi: int, rel_offsets,
                    compute_dtype=None) -> tuple:
@@ -196,24 +307,27 @@ def fused_gnn_tick(params, features, kind, nmask, esrc, edst, erel, emask,
     "bfloat16" (operands of every product rounded, float32 sums).
 
     CPU tensors run the plain version; CUDA tensors launch the kernels on
-    the current stream (or raise)."""
+    the current stream (or raise). When a gradient is wanted (module
+    docstring) the same forward runs inside the autograd Function, whose
+    backward recomputes ``composed_tick``; the mirrors are still updated
+    in place and returned."""
     global launches
     offs = check_layout(rel_offsets, "fused_gnn_tick")
-    if _on_cpu(features, "fused_gnn_tick"):
-        return fused_gnn_tick_plain(
-            params, features, kind, nmask, esrc, edst, erel, emask, ints,
-            pk=pk, ek=ek, pi=pi, rel_offsets=offs, compute_dtype=compute_dtype)
-    _check("features", features, torch.float32, tuple(features.shape),
-           features.device)
-    hid = int(params["embed_b"].shape[0])
-    h = [torch.empty((features.shape[0], hid), dtype=torch.float32,
-                     device=features.device) for _ in range(2)]
+    on_cpu = _on_cpu(features, "fused_gnn_tick")
+    if not on_cpu:
+        _check("features", features, torch.float32, tuple(features.shape),
+               features.device)
+    flat = gnn.flat_params(params)
     mirrors = (kind, nmask, esrc, edst, erel, emask)
-    logits, probs = _launch(params, features, mirrors, ints, *h, pk, ek, pi,
-                            offs, compute_dtype, _ROW_TILE, None, None,
-                            dma=False)
-    launches += 1
-    return (*mirrors, logits, probs)
+    if _wants_grad(features, nmask, emask, *flat.values()):
+        out = _FusedTickFunction.apply(
+            (tuple(flat), pk, ek, pi, offs, compute_dtype), features,
+            *mirrors, ints, *flat.values())
+    else:
+        out = (*mirrors, *_fused_forward(params, features, mirrors, ints, pk,
+                                         ek, pi, offs, compute_dtype))
+    launches += int(not on_cpu)
+    return out
 
 
 def fused_gnn_tick_dma(params, features, kind, nmask, esrc, edst, erel,
@@ -234,6 +348,12 @@ def fused_gnn_tick_dma(params, features, kind, nmask, esrc, edst, erel,
     CPU tensors run the plain version; CUDA tensors launch the kernels on
     the current stream (or raise)."""
     global dma_launches
+    if _wants_grad(features, nmask, emask, h_a, h_b,
+                   *gnn.flat_params(params).values()):
+        raise RuntimeError(
+            "fused_gnn_tick_dma has no backward (the streamed tick serves "
+            "only, as in the JAX package): run it under torch.no_grad(), "
+            "or train through fused_gnn_tick or rca/gnn.forward")
     offs = check_layout(rel_offsets, "fused_gnn_tick_dma")
     check_quant(feat_quant, fq_rows, feat_scale)
     nb = dma_node_block(features.shape[0], node_block)

@@ -18,6 +18,16 @@ There is no fallback from one to the other.
 The dst-CSR (:func:`make_plan`) depends only on the layout, so a forward
 builds it once and passes it to each of its L layers.
 
+On the card the pass is differentiable in ``h`` and ``w_rel`` (a
+``torch.autograd.Function``, entered only when a gradient is wanted): the
+forward is the kernel launch above; the backward computes ``dh`` with the
+SAME kernel on the transposed layout (the cotangent gathered at ``dst``,
+added at ``src``, ``w_rel`` transposed) over the layout's src-CSR, which
+the plan builds at its first backward and keeps for the other layers, and
+``dw`` with ``kernels/grad_w``. ``mask`` and the index arrays are layout
+constants and get no gradient, as in the JAX package's ``custom_vjp``.
+Under ``torch.no_grad()`` nothing is saved and no src-CSR is built.
+
 Bound on an H100 at the learned path's widths (H = K = 64, float32):
 operations, ``2 * live * H * K`` over the float32 rate; the bytes it must
 move (:func:`bound`) take about a third of that time.
@@ -25,13 +35,14 @@ move (:func:`bound`) take about a third of that time.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..ops.segment import as_dtype
 from ..ops.segment import gather_matmul_segment as gather_matmul_segment_reference
+from . import grad_w
 
 launches = 0
 """Kernel launches so far (one per message pass); a run resets it to show
@@ -68,6 +79,26 @@ class GmsPlan:
     offsets: torch.Tensor     # [R+1] int32
     perm: torch.Tensor        # [live] int32 edge indices
     rowptr: torch.Tensor      # [N+1] int32
+    _transposed: list = field(default_factory=list, compare=False,
+                              repr=False)
+
+    def transposed(self, src: torch.Tensor, mask: torch.Tensor,
+                   num_rows: int) -> "GmsPlan":
+        """The src-CSR of the same layout (the plan of the backward's
+        ``dh`` pass, whose destinations are the sources), built at the
+        first call and kept: a forward's L layers share it. A later call
+        with other ``src``/``mask`` tensors, or a changed one, or another
+        ``num_rows`` raises rather than return the kept CSR."""
+        key = tuple((t.data_ptr(), tuple(t.shape), t._version)
+                    for t in (src, mask)) + (int(num_rows),)
+        if not self._transposed:
+            self._transposed.append((key, make_plan(
+                src, mask, self.rel_offsets, num_rows)))
+        kept, plan = self._transposed[0]
+        if kept != key:
+            raise ValueError("the plan's src-CSR was built for other src / "
+                             "mask tensors or another row count")
+        return plan
 
 
 def _check_offsets(offs: tuple[int, ...], num_edges: int) -> None:
@@ -115,6 +146,67 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
                          f"{tuple(t.shape)}")
 
 
+def _launch(table: torch.Tensor, w: torch.Tensor, gather: torch.Tensor,
+            mask: torch.Tensor, offs: tuple[int, ...], num_segments: int,
+            cdt: torch.dtype, plan: GmsPlan) -> torch.Tensor:
+    """One launch of the pass on the current stream: rows ``gather`` of
+    ``table`` (masked, times ``w[r]`` per slice) summed into
+    ``[num_segments, K]`` over ``plan``'s CSR."""
+    global launches
+    dev = table.device
+    n_h, hid = table.shape
+    n_rel, _, k_out = w.shape
+    h_c = table.to(cdt).contiguous()
+    w_c = w.to(cdt).contiguous()
+    m_c = mask.to(cdt).contiguous()
+    gather = gather.contiguous()
+    n_edges = offs[-1]
+    msg = torch.empty((n_edges, k_out), dtype=torch.float32, device=dev)
+    out = torch.empty((num_segments, k_out), dtype=torch.float32, device=dev)
+    if num_segments == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gms_launch(
+            _DTYPE_CODE[cdt], h_c.data_ptr(), n_h, hid, w_c.data_ptr(),
+            n_rel, k_out, gather.data_ptr(), m_c.data_ptr(),
+            plan.offsets.data_ptr(), n_edges, plan.perm.data_ptr(),
+            plan.rowptr.data_ptr(), num_segments, msg.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("gms launch failed: "
+                           + lib.gms_error_string(rc).decode())
+    launches += 1
+    return out
+
+
+class _GmsFunction(torch.autograd.Function):
+    """The pass on the card with its backward (see the module docstring):
+    gradients for ``h`` and ``w_rel`` only."""
+
+    @staticmethod
+    def forward(ctx, h, w_rel, src, dst, mask, offs, num_segments, cdt,
+                plan):
+        ctx.save_for_backward(h, w_rel, src, dst, mask)
+        ctx.layout = (offs, num_segments, cdt, plan)
+        return _launch(h, w_rel, src, mask, offs, num_segments, cdt, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w_rel, src, dst, mask = ctx.saved_tensors
+        offs, _, cdt, plan = ctx.layout
+        g = g.float().contiguous()
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = _launch(g, w_rel.transpose(1, 2), dst, mask, offs,
+                         h.shape[0], cdt,
+                         plan.transposed(src, mask, h.shape[0]))
+        if ctx.needs_input_grad[1]:
+            dw = grad_w.gms_grad_w(h, g, src, dst, mask, offs,
+                                   w_rel.shape[0], compute_dtype=cdt)
+        return dh, dw, None, None, None, None, None, None, None
+
+
 def gather_matmul_segment(
     h: torch.Tensor,              # [N, H] float32 node table
     w_rel: torch.Tensor,          # [R, H, K] float32 per-relation transforms
@@ -133,13 +225,15 @@ def gather_matmul_segment(
     once before the gathers; products and sums stay float32. ``plan`` is
     the layout's dst-CSR (:func:`make_plan`), built here when not given.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream (or raise)."""
-    global launches
+    CPU tensors run the plain version (which torch's autograd
+    differentiates); CUDA tensors launch the kernel on the current stream
+    (or raise), through the autograd Function when ``h`` or ``w_rel``
+    requires a gradient and grad mode is on. On both, ``mask`` is a layout
+    constant: no gradient flows to it through the pass."""
     dev = h.device
     if dev.type == "cpu":
         return gather_matmul_segment_reference(
-            h, w_rel, src, dst, mask, rel_offsets, num_segments,
+            h, w_rel, src, dst, mask.detach(), rel_offsets, num_segments,
             compute_dtype=compute_dtype)
     if dev.type != "cuda":
         raise ValueError(f"gather_matmul_segment runs on cuda or cpu, not {dev}")
@@ -164,28 +258,10 @@ def gather_matmul_segment(
         plan = make_plan(dst, mask, offs, num_segments)
     elif plan.rel_offsets != offs or plan.num_segments != num_segments:
         raise ValueError("plan was built for another layout")
-    h_c = h.to(cdt).contiguous()
-    w_c = w_rel.to(cdt).contiguous()
-    m_c = mask.to(cdt).contiguous()
-    src, dst = src.contiguous(), dst.contiguous()
-    n_edges = offs[-1]
-    msg = torch.empty((n_edges, k_out), dtype=torch.float32, device=dev)
-    out = torch.empty((num_segments, k_out), dtype=torch.float32, device=dev)
-    if num_segments == 0:
-        return out
-    lib = _library()
-    with torch.cuda.device(dev):
-        rc = lib.gms_launch(
-            _DTYPE_CODE[cdt], h_c.data_ptr(), n_h, hid, w_c.data_ptr(),
-            n_rel, k_out, src.data_ptr(), m_c.data_ptr(),
-            plan.offsets.data_ptr(), n_edges, plan.perm.data_ptr(),
-            plan.rowptr.data_ptr(), num_segments, msg.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("gms launch failed: "
-                           + lib.gms_error_string(rc).decode())
-    launches += 1
-    return out
+    if torch.is_grad_enabled() and (h.requires_grad or w_rel.requires_grad):
+        return _GmsFunction.apply(h, w_rel, src, dst, mask, offs,
+                                  num_segments, cdt, plan)
+    return _launch(h, w_rel, src, mask, offs, num_segments, cdt, plan)
 
 
 def bound(src: np.ndarray, mask: np.ndarray, rel_offsets: tuple[int, ...],

@@ -2,14 +2,20 @@
 
 The JAX package's models are pydantic ``BaseModel``s; the port keeps their
 field names, defaults and enums as keyword-only dataclasses, so it runs
-where pydantic is not installed. ``model_dump`` is the one pydantic
-method the slice calls (evidence dicts for the CPU oracle), with the same
+where pydantic is not installed. They carry the pydantic surface the port
+calls: ``model_dump`` (evidence dicts for the CPU oracle), with the same
 ``mode="json"`` conversions: enums to values, UUIDs to strings and
-datetimes to ISO-8601 (UTC as ``Z``).
+datetimes to ISO-8601 (UTC as ``Z``); ``model_dump_json`` (the durable
+store's runbook rows); the class attribute ``model_fields`` (field name →
+``dataclasses.Field``); and ``model_validate``, which builds a model from a
+stored row, converting strings back to the field's enum, UUID or datetime
+as pydantic's validation does.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import typing
 from datetime import datetime
 from enum import Enum
 from uuid import UUID
@@ -34,13 +40,55 @@ def _dump(value, json_mode: bool):
     return value
 
 
+def _coerce(value, hint):
+    """A stored value (a string from JSON or SQL) as the annotated type:
+    enums, UUIDs and datetimes, also inside ``Optional``; anything else as
+    it is."""
+    if value is None:
+        return None
+    args = [a for a in typing.get_args(hint) if a is not type(None)]
+    if typing.get_origin(hint) is typing.Union and len(args) == 1:
+        hint = args[0]
+    if isinstance(hint, type):
+        if issubclass(hint, Enum) and not isinstance(value, hint):
+            return hint(value)
+        if hint is UUID and isinstance(value, str):
+            return UUID(value)
+        if hint is datetime and isinstance(value, str):
+            return datetime.fromisoformat(value.replace("Z", "+00:00"))
+    return value
+
+
+class _FieldMap:
+    """``Model.model_fields``: the dataclass fields by name, read off the
+    class (a class attribute, as in pydantic)."""
+
+    def __get__(self, obj, cls) -> dict:
+        return {f.name: f for f in dataclasses.fields(cls)}
+
+
 class Model:
-    """Mixin giving a dataclass model pydantic's ``model_dump``."""
+    """Mixin giving a dataclass model pydantic's ``model_dump``,
+    ``model_dump_json``, ``model_fields`` and ``model_validate``."""
+
+    model_fields = _FieldMap()
 
     def model_dump(self, mode: str = "python") -> dict:
         if mode not in ("python", "json"):
             raise ValueError(f"unknown dump mode {mode!r}")
         return _dump(self, mode == "json")
+
+    def model_dump_json(self) -> str:
+        """The ``mode="json"`` dump as compact JSON, as pydantic writes it."""
+        return json.dumps(self.model_dump(mode="json"), separators=(",", ":"))
+
+    @classmethod
+    def model_validate(cls, data: dict):
+        """The model from a dict of its fields (other keys are an error),
+        converting stored strings to the fields' enums, UUIDs and
+        datetimes."""
+        hints = typing.get_type_hints(cls)
+        return cls(**{k: _coerce(v, hints[k]) for k, v in data.items()})
 
 
 model = dataclasses.dataclass(kw_only=True)

@@ -19,6 +19,12 @@ Two mappings of the per-relation math:
   :func:`_message_pass`, plain PyTorch, kept for the tests. Only CPU
   tensors take it; the port serves bucketed layouts.
 
+Training: :func:`loss_fn` (masked mean cross-entropy) and
+:func:`make_train_step` (loss, backward, a ``torch.optim`` step). On the
+card the backward of each message pass runs through the hand kernels too
+(``kernels/gms``'s autograd Function: ``gms`` on the transposed layout for
+the node-table gradient, ``kernels/grad_w`` for the weight gradient).
+
 The embed, self-transform and head products are ``torch.matmul`` in full
 float32 (the JAX package leaves them to XLA outside any kernel), so TF32
 must stay off (``torch.backends.cuda.matmul.allow_tf32``, off by default).
@@ -164,10 +170,19 @@ def forward(
     # degree: a sum of 0/1 masks, exact in any order
     deg = torch.zeros(n, dtype=features.dtype, device=features.device
                       ).index_add_(0, edge_dst.long(), edge_mask)
-    inv_deg = torch.where(deg > 0, 1.0 / torch.clamp(deg, min=1.0),
+    # maximum, not clamp: at deg == 1 its gradient splits between the two
+    # arguments, as jnp.maximum's does (edge_mask's gradient in training)
+    inv_deg = torch.where(deg > 0, 1.0 / torch.maximum(deg, torch.ones_like(deg)),
                           torch.zeros_like(deg))
+    # the kind lookup as a one-hot product: the same rows exactly (one term
+    # of 1 * row, the others 0), and a backward that is one deterministic
+    # matmul. On an H100 at config 3 the index form's backward took 16 ms
+    # of a 20 ms training step (it walks each kind's rows one by one) and
+    # F.embedding's adds with float atomics, so two steps differed
+    kinds = torch.arange(params["kind_emb"].shape[0], device=features.device)
+    one_hot = (node_kind.long()[:, None] == kinds).to(features.dtype)
     h = torch.relu(features @ params["embed_w"] + params["embed_b"]
-                   + params["kind_emb"][node_kind.long()])
+                   + one_hot @ params["kind_emb"])
     h = h * node_mask[:, None]
     if rel_offsets is not None:
         plan = (gms.make_plan(edge_dst, edge_mask, rel_offsets, n)
@@ -186,8 +201,96 @@ def forward(
     return h[incident_nodes.long()] @ params["head_w"] + params["head_b"]
 
 
+def loss_fn(
+    params: Params,
+    features, node_kind, node_mask, edge_src, edge_dst, edge_rel,
+    edge_mask, incident_nodes, labels, label_mask,
+    *,
+    rel_offsets: tuple[int, ...] | None = None,
+    compute_dtype: str | None = None,
+) -> torch.Tensor:
+    """Masked mean cross-entropy over incident rows (keywords as in
+    :func:`forward`): ``sum(nll * label_mask) / max(sum(label_mask), 1)``."""
+    logits = forward(params, features, node_kind, node_mask, edge_src,
+                     edge_dst, edge_rel, edge_mask, incident_nodes,
+                     rel_offsets=rel_offsets, compute_dtype=compute_dtype)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(1, labels.long()[:, None])[:, 0]
+    return (nll * label_mask).sum() / torch.clamp(label_mask.sum(), min=1.0)
+
+
+def adam(lr: float):
+    """The optimizer factory of ``optax.adam(lr)``: torch's Adam has the
+    same defaults (b1 0.9, b2 0.999, eps 1e-8) and the same update,
+    ``lr * m_hat / (sqrt(v_hat) + eps)``."""
+    return lambda leaves: torch.optim.Adam(leaves, lr=lr)
+
+
+def adamw(lr: float, weight_decay: float):
+    """The optimizer factory of ``optax.adamw(lr, weight_decay=wd)``. optax
+    adds ``wd * p`` to the update before the ``-lr`` scale, torch decays
+    ``p`` first; the two agree to rounding."""
+    return lambda leaves: torch.optim.AdamW(leaves, lr=lr,
+                                            weight_decay=weight_decay)
+
+
+def trainable(params: Params) -> Params:
+    """A fresh copy of ``params`` whose float32 leaves require grad (the
+    tree an optimizer steps; the tree it came from is never touched)."""
+    return unflat_params({k: v.detach().clone().float().requires_grad_(True)
+                          for k, v in flat_params(params).items()})
+
+
+def leaves(params: Params) -> list[torch.Tensor]:
+    """The params' leaves in :func:`flat_params` order."""
+    return list(flat_params(params).values())
+
+
+def batch_to(batch: dict, device) -> dict:
+    """The array entries of a :func:`snapshot_batch` (``TRAIN_ARRAYS``;
+    numpy arrays or tensors) as tensors on ``device``; other entries are
+    left out."""
+    return {k: _tensor(batch[k], device) for k in TRAIN_ARRAYS if k in batch}
+
+
+def _tensor(v, device) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    return torch.as_tensor(np.ascontiguousarray(v)).to(device)
+
+
+def make_train_step(optimizer_factory):
+    """The single-device train step: ``step(params, opt_state, batch,
+    rel_offsets=None) -> (params, opt_state, loss)``.
+
+    ``optimizer_factory`` maps a list of leaves to a ``torch.optim``
+    optimizer (:func:`adam`, :func:`adamw`). ``opt_state`` is that
+    optimizer; pass ``None`` on the first step and the step makes it over
+    :func:`trainable` leaves of ``params``. The optimizer updates the
+    leaves in place, so the returned ``params`` is the tree it steps.
+    ``batch`` holds ``TRAIN_ARRAYS`` (numpy or tensors; moved to the
+    params' device); ``rel_offsets`` is the batch's relation layout. The
+    returned loss is a detached scalar tensor on the params' device."""
+
+    def step(params, opt_state, batch, rel_offsets=None):
+        if opt_state is None:
+            params = trainable(params)
+            opt_state = optimizer_factory(leaves(params))
+        dev = params["embed_w"].device
+        b = batch_to(batch, dev)
+        opt_state.zero_grad(set_to_none=True)
+        loss = loss_fn(params, *(b[k] for k in TRAIN_ARRAYS),
+                       rel_offsets=rel_offsets)
+        loss.backward()
+        opt_state.step()
+        return params, opt_state, loss.detach()
+
+    return step
+
+
 _BATCH_ARRAYS = ("features", "node_kind", "node_mask", "edge_src",
                  "edge_dst", "edge_rel", "edge_mask", "incident_nodes")
+TRAIN_ARRAYS = _BATCH_ARRAYS + ("labels", "label_mask")
 
 
 def forward_batch(params: Params, batch: dict, *,
@@ -200,8 +303,7 @@ def forward_batch(params: Params, batch: dict, *,
         raise ValueError("batch has no rel_offsets: the port serves "
                          "relation-bucketed layouts only")
     dev = params["embed_w"].device
-    args = [torch.as_tensor(np.ascontiguousarray(batch[k])).to(dev)
-            for k in _BATCH_ARRAYS]
+    args = [_tensor(batch[k], dev) for k in _BATCH_ARRAYS]
     return forward(params, *args, rel_offsets=offs,
                    compute_dtype=compute_dtype)
 

@@ -39,8 +39,9 @@ class CheckpointError(ValueError):
 def load_validated_checkpoint(path: "str | os.PathLike") -> gnn.Params:
     """Load a ``.npz`` checkpoint (flat keys ``embed_w``, ``layers.0.w_rel``
     ...; see ``gnn.flat_params``) as a numpy params tree, and validate it
-    against the serving model contract. Every failure is one
-    :class:`CheckpointError`."""
+    against the serving model contract. Keys ``config.*`` (the model config
+    the trainer stores beside the leaves, ``rca/train.save_checkpoint``)
+    are not params. Every failure is one :class:`CheckpointError`."""
     path = Path(path)
     if path.is_dir():
         raise CheckpointError(
@@ -49,7 +50,8 @@ def load_validated_checkpoint(path: "str | os.PathLike") -> gnn.Params:
             "tests/test_torch_gnn.py (write_npz_checkpoint)")
     try:
         with np.load(path, allow_pickle=False) as data:
-            flat = {k: np.asarray(data[k]) for k in data.files}
+            flat = {k: np.asarray(data[k]) for k in data.files
+                    if not k.startswith("config.")}
     except (OSError, ValueError, KeyError, EOFError) as exc:
         raise CheckpointError(
             f"checkpoint at {path} is unreadable ({type(exc).__name__}: "

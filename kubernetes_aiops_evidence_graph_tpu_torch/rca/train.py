@@ -1,0 +1,500 @@
+"""GNN trainer — labeled episodes from the simulator, eval vs the oracle.
+
+The port of the JAX package's ``rca/train.py``: the GNN scorer
+(``rca/gnn.py``) trained on fault-injection episodes whose labels are the
+scenarios' expected diagnosis rules — the signal the deterministic ruleset
+encodes, so eval accuracy is directly comparable to the rules oracle.
+Episodes, schedule, optimizer and metrics are the JAX package's; the
+training step runs on the card by default (``device=None`` → CUDA, or
+raise), where every message pass and its backward go through the hand
+kernels (``kernels/gms``, ``kernels/grad_w``).
+
+Usage (also ``python -m kubernetes_aiops_evidence_graph_tpu_torch.rca.train``):
+
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.train import train
+    result = train(episodes=8, steps=200)   # -> params, metrics history
+
+Checkpoints are ``.npz`` files with the flat leaves of ``gnn.flat_params``
+and the model config beside them (``config.hidden``, ``config.layers``),
+the format ``rca/gnn_backend.load_validated_checkpoint`` reads.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import gnn
+from .ruleset import RULE_INDEX
+
+
+# Rule pairs the JAX package's round-4 holdout showed the GNN confusing
+# under evidence interference on small dense clusters. Dense episodes
+# co-locate these in the same namespace so training sees that overlap.
+_CONFUSABLE_PAIRS = (          # scenario names (keyed for inject())
+    ("oom", "crashloop"),               # oom_killed vs crashloop_no_change
+    ("oom_pressure", "crashloop_deploy"),  # oom_high_memory vs recent_deploy
+    ("probe_failure", "network"),       # readiness vs network_error
+    ("config_error", "node_pressure"),  # config_error vs node_failure
+    ("imagepull", "hpa_maxed"),
+)
+
+
+class _NullScorer:
+    """stream_step sink when an episode needs store+cluster churn but no
+    resident device state (training-data generation)."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def _touches_protected(cluster, ev, deps: set, svcs: set) -> bool:
+    """Would this churn event mutate state an injected incident's label
+    depends on? Incident arrival/closure are always out (the label set
+    must stay fixed); otherwise protection follows the event's target."""
+    if ev.kind in ("incident_arrival", "incident_close"):
+        return True
+    key = f"{ev.namespace}/{ev.name}"
+    if ev.kind == "rollout":
+        return key in deps
+    if ev.kind == "metric_drift":
+        return key in svcs
+    if ev.kind == "pod_create":
+        return f"{ev.namespace}/{ev.payload['deployment']}" in deps
+    p = cluster.pods.get(key)
+    return p is not None and f"{p.namespace}/{p.deployment}" in deps
+
+
+def make_episode(num_pods: int, num_incidents: int, seed: int,
+                 churn: int = 0, dense: bool = False, unknowns: int = 0,
+                 return_snapshot: bool = False) -> dict:
+    """One labeled training episode: a fresh simulated cluster with
+    ``num_incidents`` injected scenarios → snapshot batch + labels (host
+    numpy arrays, as ``gnn.snapshot_batch`` packs them).
+
+    ``churn`` applies that many background churn events AFTER the last
+    ingest, skipping anything that would touch an injected incident's
+    deployment/service, so the rule-visible evidence (and the label) stays
+    fixed while the message-passing neighborhood moves. ``dense=True``
+    targets adjacent deployments and orders scenarios as the confusable
+    pairs above. ``unknowns`` opens that many no-fault incidents (alerts
+    over healthy deployments) labeled with the unknown class.
+    ``return_snapshot=True`` adds the GraphSnapshot under ``"snapshot"``."""
+    from ..collectors import collect_all, default_collectors
+    from ..config import load_settings
+    from ..graph import GraphBuilder, build_snapshot
+    from ..graph.topology_sync import sync_topology
+    from ..simulator import SCENARIOS, generate_cluster, inject
+    from ..simulator.stream import churn_events, stream_step
+
+    settings = load_settings(
+        node_bucket_sizes=(256, 512, 1024, 4096),
+        incident_bucket_sizes=(8, 32),
+    )
+    cluster = generate_cluster(num_pods=num_pods, seed=seed)
+    rng = np.random.default_rng(seed)
+    deploy_keys = sorted(cluster.deployments)
+    if dense:
+        flat = [n for pair in _CONFUSABLE_PAIRS for n in pair]
+        names = flat[seed % len(flat):] + flat[:seed % len(flat)]
+    else:
+        names = sorted(SCENARIOS)
+    builder = GraphBuilder()
+    sync_topology(cluster, builder.store)
+    sink = _NullScorer()
+    protected_deps: set[str] = set()
+    protected_svcs: set[str] = set()
+    labels = []
+    stride = 1 if dense else 5
+    for i in range(num_incidents):
+        name = names[(seed + i) % len(names)] if not dense \
+            else names[i % len(names)]
+        target = deploy_keys[(i * stride) % len(deploy_keys)]
+        inc = inject(cluster, name, target, rng)
+        protected_deps.add(target)
+        d = cluster.deployments.get(target)
+        if d is not None:
+            protected_svcs.add(f"{d.namespace}/{d.service}")
+        builder.ingest(inc, collect_all(inc, default_collectors(cluster, settings),
+                                        parallel=False))
+        labels.append(RULE_INDEX[SCENARIOS[name].expected_rule])
+    # no-fault incidents only target deployments no fault touched: an
+    # index collision would attach faulty pods to an "unknown" incident
+    faulted = {(i * stride) % len(deploy_keys) for i in range(num_incidents)}
+    clean_idx = [j for j in range(len(deploy_keys)) if j not in faulted]
+    for u in range(min(unknowns, len(clean_idx))):
+        from ..graph import ids
+        from ..models import GraphEntity, GraphRelation
+        target = deploy_keys[clean_idx[(u * 7 + 3) % len(clean_idx)]]
+        ns, dname = target.split("/", 1)
+        d = cluster.deployments[target]
+        inc_nid = f"incident:unknown-{seed}-{u}"
+        builder.store.upsert_entities([GraphEntity(
+            id=inc_nid, type="Incident",
+            properties={"severity": "low", "service": dname,
+                        "namespace": ns})])
+        pods = cluster.list_pods(ns, d.service)[:4]
+        builder.store.upsert_relations([
+            GraphRelation(source_id=inc_nid,
+                          target_id=ids.pod_id(p.namespace, p.name),
+                          relation_type="AFFECTS")
+            for p in pods])
+        labels.append(gnn.NUM_CLASSES - 1)
+    if churn:
+        applied = 0
+        # oversample: some events are vetoed by protection
+        for ev in churn_events(cluster, churn * 4, seed=seed * 1009 + 1):
+            if applied >= churn:
+                break
+            if _touches_protected(cluster, ev, protected_deps,
+                                  protected_svcs):
+                continue
+            stream_step(cluster, builder.store, sink, ev)
+            applied += 1
+    snap = build_snapshot(builder.store, settings, now_s=cluster.now.timestamp())
+    batch = gnn.snapshot_batch(snap, np.asarray(labels, dtype=np.int32))
+    if return_snapshot:
+        batch["snapshot"] = snap
+    return batch
+
+
+def make_dataset(episodes: int, num_pods: int | Sequence[int] = 96,
+                 num_incidents: int = 6, seed: int = 0, churn: int = 0,
+                 dense: bool = False, unknowns: int = 0,
+                 return_snapshot: bool = False) -> list[dict]:
+    """``num_pods`` may be a sequence of cluster sizes, cycled per episode
+    (the product-scale evaluation trains across 96→2k-pod clusters).
+    ``churn``/``dense``/``return_snapshot`` pass through to
+    :func:`make_episode`."""
+    sizes = ([num_pods] if isinstance(num_pods, int) else list(num_pods))
+    return [make_episode(sizes[e % len(sizes)], num_incidents, seed + e,
+                         churn=churn, dense=dense, unknowns=unknowns,
+                         return_snapshot=return_snapshot)
+            for e in range(episodes)]
+
+
+def _predictions(params: gnn.Params, batches: Sequence[dict]
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """(labels, predictions) over the labeled incidents of ``batches``,
+    one forward and one readback per batch."""
+    y_true, y_pred = [], []
+    with torch.no_grad():
+        for b in batches:
+            logits = gnn.forward_batch(params, b).cpu().numpy()
+            pred = logits.argmax(axis=-1)
+            mask = np.asarray(b["label_mask"]) > 0
+            y_true.append(np.asarray(b["labels"])[mask])
+            y_pred.append(pred[mask])
+    if not y_true:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    return np.concatenate(y_true), np.concatenate(y_pred)
+
+
+def evaluate(params: gnn.Params, batches: Sequence[dict]) -> float:
+    """Top-1 accuracy over the labeled (masked) incidents of ``batches``."""
+    y, p = _predictions(params, batches)
+    return float((y == p).sum()) / max(len(y), 1)
+
+
+def confusion(params: gnn.Params, batches: Sequence[dict]) -> dict:
+    """Per-rule confusion over ``batches``.
+
+    Returns {"matrix": [C+1][C+1] counts (row = true rule, col = predicted,
+    last index = unknown), "per_rule": {rule_id: {support, correct,
+    recall, precision}}, "accuracy": float, "incidents": int}."""
+    from .ruleset import NUM_RULES, RULES
+
+    y, p = _predictions(params, batches)
+    c = NUM_RULES + 1
+    mat = np.zeros((c, c), np.int64)
+    np.add.at(mat, (y, p), 1)
+    names = [r.id for r in RULES] + ["unknown"]
+    per_rule = {}
+    for i, name in enumerate(names):
+        support = int(mat[i].sum())
+        predicted = int(mat[:, i].sum())
+        correct = int(mat[i, i])
+        per_rule[name] = {
+            "support": support,
+            "correct": correct,
+            "recall": correct / support if support else None,
+            "precision": correct / predicted if predicted else None,
+        }
+    return {"matrix": mat.tolist(), "classes": names,
+            "per_rule": per_rule,
+            "accuracy": float((y == p).sum()) / max(len(y), 1),
+            "incidents": int(len(y))}
+
+
+def train(episodes: int = 8, steps: int = 200,
+          num_pods: int | Sequence[int] = 96,
+          num_incidents: int = 6, hidden: int = 64, layers: int = 3,
+          lr: float = 3e-3, seed: int = 0, eval_holdout: int = 2,
+          augment_dense: int = 0, augment_churn: int = 0,
+          augment_small: int = 0, weight_decay: float = 0.0,
+          with_confusion: bool = False, verbose: bool = False,
+          device=None) -> dict:
+    """Train on simulator episodes; returns params + metric history.
+
+    The last ``eval_holdout`` episodes are never trained on. The JAX
+    package's product-scale evaluation (BASELINE.md) is ``--episodes 130
+    --pods 96,256,512,1024,2048 --incidents 8 --steps 2000 --holdout 30
+    --confusion``. ``augment_dense``/``augment_churn``/``augment_small``
+    append that many interference / churned / small episodes to the TRAIN
+    set only. ``device`` (default CUDA, or raise) is where the params live
+    and every step runs; the train batches are moved there once. Besides
+    the JAX package's ``params``/``metrics``/``config``, the result has
+    ``timing``: seconds spent making data, in the step loop and in eval,
+    and the loop's steps per second."""
+    import time
+    dev = resolve_device(device)
+    if episodes <= eval_holdout:
+        raise ValueError(
+            f"episodes ({episodes}) must exceed eval_holdout ({eval_holdout})")
+    t0 = time.perf_counter()
+    data = make_dataset(episodes, num_pods, num_incidents, seed,
+                        return_snapshot=with_confusion)
+    holdout = data[len(data) - eval_holdout:] if eval_holdout else []
+    train_set = data[:len(data) - eval_holdout] if eval_holdout else data
+    if augment_dense:
+        # disjoint seed block; small clusters = maximal evidence overlap
+        train_set = train_set + make_dataset(
+            augment_dense, [96, 128], num_incidents, seed=seed + 50000,
+            dense=True)
+    if augment_churn:
+        train_set = train_set + make_dataset(
+            augment_churn, [96, 256, 512], num_incidents,
+            seed=seed + 70000, churn=40 * max(num_incidents, 1))
+    if augment_small:
+        train_set = train_set + make_dataset(
+            augment_small, [96, 128], num_incidents, seed=seed + 90000,
+            unknowns=2)
+
+    # every training episode is relation-bucketed (build_snapshot lays
+    # the edges out per relation); its offsets ride beside the arrays
+    train_offsets = [tuple(b.get("rel_offsets") or ()) or None
+                     for b in train_set]
+    train_dev = [gnn.batch_to(b, dev) for b in train_set]
+
+    params = gnn.init_params(torch.Generator().manual_seed(seed),
+                             hidden=hidden, layers=layers, device=dev)
+    factory = gnn.adamw(lr, weight_decay) if weight_decay else gnn.adam(lr)
+    step = gnn.make_train_step(factory)
+    opt_state = None
+
+    _sync(dev)
+    t1 = time.perf_counter()
+    history = []
+    for s in range(steps):
+        i = s % len(train_dev)
+        params, opt_state, loss = step(params, opt_state, train_dev[i],
+                                       rel_offsets=train_offsets[i])
+        if s % max(steps // 10, 1) == 0 or s == steps - 1:
+            history.append({"step": s, "loss": float(loss)})
+            if verbose:
+                print(f"step {s:5d} loss {float(loss):.4f}", file=sys.stderr)
+    params = gnn.unflat_params({k: v.detach()
+                                for k, v in gnn.flat_params(params).items()})
+    _sync(dev)
+    t2 = time.perf_counter()
+
+    holdout_cm = confusion(params, holdout) if holdout else None
+    crosscheck = crosscheck_holdout(params, holdout) \
+        if with_confusion and holdout else None
+    metrics = {
+        "train_accuracy": evaluate(params, [
+            {**b, "rel_offsets": o or ()} for b, o in zip(train_set,
+                                                        train_offsets)]),
+        "holdout_accuracy": holdout_cm["accuracy"] if holdout_cm else None,
+        "train_incidents": sum(int(np.asarray(b["label_mask"]).sum())
+                               for b in train_set),
+        "holdout_incidents": sum(int(np.asarray(b["label_mask"]).sum())
+                                 for b in holdout),
+        "final_loss": history[-1]["loss"],
+        "history": history,
+    }
+    if with_confusion and holdout_cm:
+        metrics["holdout_confusion"] = holdout_cm
+    if crosscheck is not None:
+        metrics["holdout_crosscheck"] = crosscheck
+    timing = {"data_s": t1 - t0, "train_s": t2 - t1,
+              "steps_per_s": steps / max(t2 - t1, 1e-9),
+              "eval_s": time.perf_counter() - t2}
+    return {"params": params, "metrics": metrics,
+            "config": {"hidden": hidden, "layers": layers}, "timing": timing}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def crosscheck_holdout(params: gnn.Params,
+                       holdout: Sequence[dict]) -> dict:
+    """Characterize every holdout miss against the rules oracle on the
+    SAME snapshot (the rules backend on the params' device). A miss is
+    ambiguous by construction when the scenario label is not recoverable
+    from the graph: the oracle is also wrong on that incident, or the
+    incident has an indistinguishable TWIN (another incident in the same
+    episode, different label, identical oracle condition and score
+    vectors). ``ceiling_accuracy`` sums, per group of signature-identical
+    incidents, the most a deterministic scorer can get right;
+    ``clean_accuracy`` is the accuracy over incidents that are neither
+    oracle-underivable nor twins."""
+    from collections import Counter
+
+    from . import get_backend
+    from .ruleset import RULES
+
+    rule_ids = [r.id for r in RULES]
+    backend = get_backend("tpu", device=params["embed_w"].device)
+    misses, total, correct, ambiguous = [], 0, 0, 0
+    clean_total = clean_correct = 0
+    twin_flagged = 0
+    achievable = 0
+    for e, b in enumerate(holdout):
+        if "snapshot" not in b:
+            raise ValueError(
+                "crosscheck_holdout needs batches built with "
+                "return_snapshot=True (the oracle scores the snapshot)")
+        with torch.no_grad():
+            logits = gnn.forward_batch(params, b).cpu().numpy()
+        pred = logits.argmax(-1)
+        raw = backend.score_snapshot(b["snapshot"])
+        oracle = np.asarray(raw["top_rule_index"])
+        sig_scores = np.asarray(raw["scores"])
+        sig_conds = np.asarray(raw["conditions"])
+        mask = np.asarray(b["label_mask"]) > 0
+        y = np.asarray(b["labels"])
+        rows = np.nonzero(mask)[0]
+        sig = {int(i): (sig_conds[i].tobytes(), sig_scores[i].tobytes())
+               for i in rows}
+        twin = {int(i): any(sig[int(j)] == sig[int(i)] and y[j] != y[i]
+                            for j in rows if j != i)
+                for i in rows}
+        twin_flagged += sum(twin.values())
+        groups: dict = {}
+        for i in rows:
+            groups.setdefault(sig[int(i)], Counter())[int(y[i])] += 1
+        achievable += sum(max(c.values()) for c in groups.values())
+        for i in rows:
+            total += 1
+            oracle_right = oracle[i] == y[i]
+            is_clean = oracle_right and not twin[int(i)]
+            if is_clean:
+                clean_total += 1
+            if pred[i] == y[i]:
+                correct += 1
+                clean_correct += int(is_clean)
+                continue
+            amb = (not oracle_right) or twin[int(i)]
+            ambiguous += int(amb)
+            misses.append({
+                "holdout_index": int(e), "incident_row": int(i),
+                "true_rule": rule_ids[y[i]],
+                "gnn_pred": rule_ids[pred[i]] if pred[i] < len(rule_ids)
+                else "unknown",
+                "oracle_pred": rule_ids[oracle[i]]
+                if 0 <= oracle[i] < len(rule_ids) else "unknown",
+                "oracle_right": bool(oracle_right),
+                "indistinguishable_twin": bool(twin[int(i)]),
+                "ambiguous_by_construction": bool(amb),
+            })
+    ceiling = achievable / max(total, 1)
+    return {
+        "holdout_incidents": total,
+        "accuracy": correct / max(total, 1),
+        "misses": misses,
+        "ambiguous_misses": ambiguous,
+        "twin_incidents": twin_flagged,
+        "ceiling_accuracy": ceiling,
+        "clean_incidents": clean_total,
+        "clean_accuracy": clean_correct / max(clean_total, 1),
+    }
+
+
+# -- checkpointing (.npz: the flat leaves + the config) --------------------
+
+def save_checkpoint(path: str, params: gnn.Params, config: dict) -> str:
+    """Write ``params`` (flat ``gnn.flat_params`` keys, float32) and
+    ``config`` (ints, under ``config.<name>``) to the ``.npz`` at ``path``
+    (the suffix is added when missing). Returns the path written."""
+    path = os.path.abspath(path)
+    if not path.endswith(".npz"):
+        path += ".npz"
+    arrays = {k: v.detach().cpu().float().numpy() if isinstance(
+        v, torch.Tensor) else np.asarray(v, np.float32)
+        for k, v in gnn.flat_params(params).items()}
+    arrays.update({f"config.{k}": np.asarray(v) for k, v in config.items()})
+    tmp = path[:-4] + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str) -> dict:
+    """``{"params": numpy params tree, "config": {...}}`` of a checkpoint
+    written by :func:`save_checkpoint`; the params are validated as serving
+    loads them (``gnn_backend.load_validated_checkpoint``)."""
+    from .gnn_backend import load_validated_checkpoint
+    params = load_validated_checkpoint(path)
+    with np.load(path, allow_pickle=False) as data:
+        config = {k.split(".", 1)[1]: data[k].item() for k in data.files
+                  if k.startswith("config.")}
+    return {"params": params, "config": config}
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--episodes", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--pods", default="96",
+                    help="cluster size, or comma list cycled per episode "
+                         "(e.g. 96,256,512,1024,2048)")
+    ap.add_argument("--incidents", type=int, default=6)
+    ap.add_argument("--hidden", type=int, default=64)
+    ap.add_argument("--layers", type=int, default=3)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--holdout", type=int, default=2)
+    ap.add_argument("--augment-dense", type=int, default=0,
+                    help="extra interference episodes (train set only)")
+    ap.add_argument("--augment-churn", type=int, default=0,
+                    help="extra churned mid-stream episodes (train set only)")
+    ap.add_argument("--augment-small", type=int, default=0,
+                    help="extra plain 96/128-pod episodes (train set only)")
+    ap.add_argument("--weight-decay", type=float, default=0.0)
+    ap.add_argument("--confusion", action="store_true",
+                    help="include the per-rule holdout confusion matrix")
+    ap.add_argument("--checkpoint", default="",
+                    help="save trained params here (.npz)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default; raises without it) or cpu")
+    args = ap.parse_args(argv)
+    pods: int | list[int]
+    pods = ([int(x) for x in args.pods.split(",")]
+            if "," in str(args.pods) else int(args.pods))
+    out = train(episodes=args.episodes, steps=args.steps, num_pods=pods,
+                num_incidents=args.incidents, hidden=args.hidden,
+                layers=args.layers, lr=args.lr, seed=args.seed,
+                eval_holdout=args.holdout,
+                augment_dense=args.augment_dense,
+                augment_churn=args.augment_churn,
+                augment_small=args.augment_small,
+                weight_decay=args.weight_decay,
+                with_confusion=args.confusion, verbose=True,
+                device=args.device)
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, out["params"], out["config"])
+    print(json.dumps(out["metrics"]))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

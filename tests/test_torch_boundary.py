@@ -162,16 +162,29 @@ def test_settings_hold_only_what_the_port_reads(monkeypatch):
     monkeypatch.setenv("KAEG_GNN_TICK_DMA", "true")
     monkeypatch.setenv("KAEG_GNN_FEATURE_QUANT", "int8")
     monkeypatch.setenv("KAEG_MESH_DP", "4")
+    monkeypatch.setenv("KAEG_LEARN_LR", "0.02")
+    monkeypatch.setenv("KAEG_LEARN_STEPS", "7")
+    monkeypatch.setenv("KAEG_LEARN_WEAK_LABELS", "false")
     with pytest.warns(UserWarning, match="KAEG_MESH_DP: no such setting"):
         s = ts.load_settings()
     assert s.serve_pipeline_depth == 4 and s.incident_bucket_sizes == (8, 32)
     assert s.gnn_tick_dma is True and s.gnn_fused_tick is False
     assert s.gnn_feature_quant == "int8" and s.gnn_dma_node_block == 2048
+    assert s.learn_lr == 0.02 and isinstance(s.learn_lr, float)
+    assert s.learn_steps == 7 and s.learn_weak_labels is False
+    assert s.learn_interval_s == 30.0 and s.learn_pallas_grads is False
+    learn = {f.name for f in fields(ts.Settings) if f.name.startswith("learn_")}
+    assert learn == {
+        "learn_enabled", "learn_interval_s", "learn_steps", "learn_lr",
+        "learn_anchor_weight", "learn_min_episodes", "learn_buffer_cap",
+        "learn_sim_episodes", "learn_sim_holdout", "learn_sim_pods",
+        "learn_sim_incidents", "learn_holdout_every", "learn_weak_labels",
+        "learn_weak_confidence", "learn_mesh_shards", "learn_pallas_grads"}
     monkeypatch.setenv("KAEG_GNN_TICK_DMA", "0")
     monkeypatch.delenv("KAEG_MESH_DP")
     assert ts.load_settings().gnn_tick_dma is False
     assert not hasattr(s, "mesh_dp")
-    for field in ("gnn_pallas", "vmem_budget_bytes"):
+    for field in ("gnn_pallas", "vmem_budget_bytes", "learn_checkpoint_dir"):
         with pytest.raises(TypeError):
             ts.load_settings(**{field: 1})
 
@@ -221,6 +234,24 @@ def test_dataclass_models_dump_like_the_pydantic_models():
         assert [(e["evidence_type"], e["entity_name"], e["signal_strength"])
                 for e in a] == [(e["evidence_type"], e["entity_name"],
                                  e["signal_strength"]) for e in b]
+    # the rest of the pydantic surface the port calls: model_fields (a
+    # class attribute), model_dump_json, and model_validate reading a dump
+    import importlib
+    jm = importlib.import_module(JAX_PKG + ".models")
+    tm = importlib.import_module("kubernetes_aiops_evidence_graph_tpu_torch.models")
+    for name in tm.__all__:
+        if isinstance(getattr(tm, name), type) and hasattr(
+                getattr(tm, name), "model_fields"):
+            assert list(getattr(tm, name).model_fields) == list(
+                getattr(jm, name).model_fields), name
+    inc = dict(fingerprint="fp", title="t", severity="high",
+               labels={"a": "b"})
+    mine, ref = tm.Incident.model_validate(inc), jm.Incident(**inc)
+    assert shape(json.loads(mine.model_dump_json())) == shape(
+        json.loads(ref.model_dump_json()))
+    assert mine.severity is tm.Severity.HIGH
+    back = tm.Incident.model_validate(json.loads(mine.model_dump_json()))
+    assert back == mine
 
 
 def test_chip_smoke_fails_without_cuda_or_without_the_package(tmp_path):
