@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--package-dir DIR] [--state-dir DIR]
+
+(``--package-dir`` drives the port's package of another tree, for example
+an unpacked parent commit, with this script's phases: two trees compared
+on one card, one run after the other. ``--state-dir`` makes those runs
+hash the config-4 ticks' logits on the same saved state.)
 
 Drives ``kubernetes_aiops_evidence_graph_tpu_torch`` on the card, both RCA
 paths: the rules path (``rca_backend="tpu"``, kernel ``rules_fold``) and
@@ -38,7 +43,11 @@ the learned model's training, offline (``rca/train.py``) and online
    of the same forward with the plain message pass on the card, and the
    argmax equal wherever the plain version's top two logits differ by
    more than 1e-4 (the rest are counted); the GNN's top-1 agreement with
-   the CPU rules oracle is printed for information;
+   the CPU rules oracle is printed for information; the sha256 of
+   ``gms``'s output at the config-3 layout (f32 and bf16 operands) goes to
+   the ``digests`` line, and ``gms`` is split by kernel there as it is and
+   with the hubs' edges (destinations of in-degree >= 256) masked, for the
+   forward and for the backward's dh pass (the hub probe);
 7. training at config 3: ``grad_w`` against its plain version
    (``ops/segment.gms_grad_w``) within 1e-5 of the result's scale at edge
    shapes (zero-width and all-padding slices, more relations than slices,
@@ -87,9 +96,16 @@ the learned model's training, offline (``rca/train.py``) and online
    incident's scenario rule; harvest, ``learn_steps`` fine-tune steps, the
    gate, and after a swap the next tick on generation 1 within 1e-5 of a
    fresh forward with the candidate;
-11. prints one ``{"kernels": [...]}`` line with each kernel's launches on
-   the main paths, its time, the plain version's time and its bound, then
-   the nvidia-smi line, then ``{"ok": true, "device": {...}}`` last.
+11. prints a ``{"gms_compare": {...}}`` line (the message pass split by
+   kernel at config 3, forward and dh, and config 4; the hub probe; the
+   learned forward, the train step, the ticks per tier and learned
+   events/s), a ``{"digests": {...}}`` line (sha256 of the output bytes of
+   ``gms`` at config 3, f32 and bf16 operands, of the backward's dh and dw
+   there, and of the fused and streamed ticks' logits on config 4's
+   resident state after the churn), one ``{"kernels": [...]}`` line with
+   each kernel's launches on the main paths, its time, the plain
+   version's time and its bound, then the nvidia-smi line, then
+   ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises and the script exits non-zero. A kernel's ``ms``
 is its device time per call from the profiler's CUDA activity;
@@ -262,6 +278,50 @@ def device_ms(fn, iters: int = 20, by_kernel: bool = False):
     per = {e.key: e.self_device_time_total / iters / 1e3
            for e in prof.key_averages() if e.self_device_time_total > 0}
     return per if by_kernel else sum(per.values())
+
+
+def kernel_split(fn, iters: int = 20) -> dict:
+    """Device time of ``fn`` per kernel (profiler), keyed by the kernel's
+    function name (``gms_tile_kernel``, ``gms_segment_kernel``, ...)."""
+    return {(re.findall(r"\w+_kernel", name) or [name])[0]: ms
+            for name, ms in device_ms(fn, iters, by_kernel=True).items()}
+
+
+DIGESTS: dict[str, str] = {}
+"""sha256 of the output bytes of the kernels whose bits this tree must
+keep (gms, its backward's dh, the fused and streamed ticks' logits, and
+those ticks' inputs), printed on the ``digests`` line: two trees that
+compute the same bits print the same digests on the same card."""
+
+
+def digest(name: str, *tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    DIGESTS[name] = h.hexdigest()
+    return DIGESTS[name]
+
+
+STATE_DIR: "str | None" = None
+"""``--state-dir``: where the config-4 tick states whose logits the
+``digests`` line hashes are kept, so that runs of two trees hash the
+same inputs (the churned state itself differs from process to process:
+the simulator names new objects at random)."""
+
+
+def shared_state(state: dict, name: str) -> dict:
+    """``state``, or with ``--state-dir`` the state an earlier run saved
+    there under ``name`` (saving this one when there is none)."""
+    import torch
+    if STATE_DIR is None:
+        return state
+    path = os.path.join(STATE_DIR, f"{name}.pt")
+    if os.path.exists(path):
+        return torch.load(path)
+    os.makedirs(STATE_DIR, exist_ok=True)
+    torch.save(state, path)
+    return state
 
 
 def timed(kernel, plain, plain_iters: int = 10) -> dict:
@@ -457,11 +517,8 @@ def gms_timing(args: tuple, offs, n: int) -> dict:
                   lambda: gms.gather_matmul_segment_reference(*args, offs, n))
         t["plan_ms"] = device_ms(lambda: gms.make_plan(args[3], args[4],
                                                        offs, n))
-        t["ms_by_kernel"] = {
-            (re.findall(r"\w+_kernel", name) or [name])[0]: ms
-            for name, ms in device_ms(
-                lambda: gms.gather_matmul_segment(*args, offs, n, plan=plan),
-                by_kernel=True).items()}
+        t["ms_by_kernel"] = kernel_split(
+            lambda: gms.gather_matmul_segment(*args, offs, n, plan=plan))
     hid, k_out = args[0].shape[1], args[1].shape[-1]
     nbytes, ops = gms.bound(args[2].cpu().numpy(), args[4].cpu().numpy(),
                             offs, hid, k_out, n)
@@ -469,6 +526,49 @@ def gms_timing(args: tuple, offs, n: int) -> dict:
     t["live_edges"] = ops // (2 * hid * k_out)
     t["padded_edges"] = int(offs[-1])
     return t
+
+
+def hub_probe(args: tuple, offs, n: int, min_degree: int = 256) -> dict:
+    """What sets the segment walk's time: gms split by kernel on the
+    layout as it is and on a copy whose edges into the destinations of
+    in-degree >= ``min_degree`` (the hubs) have mask 0, for the forward
+    (destinations = dst) and for the backward's dh pass (the transposed
+    layout: destinations = src, over the src-CSR), with the in-degree
+    histogram of each."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms
+    h, w_rel, src, dst, mask = args
+    lo, hi = offs[0], offs[-1]
+    ct = (torch.randn((n, w_rel.shape[-1]),
+                      generator=torch.Generator().manual_seed(5)) / n
+          ).to(h.device)
+    out = {}
+    for what, table, w, gather, scatter in (
+            ("forward", h, w_rel, src, dst),
+            ("dh", ct, w_rel.transpose(1, 2), dst, src)):
+        live = torch.zeros_like(mask, dtype=torch.bool)
+        live[lo:hi] = (mask[lo:hi] != 0) & (scatter[lo:hi] >= 0) & (
+            scatter[lo:hi] < n)
+        deg = torch.bincount(scatter[live].long(), minlength=n)
+        hubs = deg >= min_degree
+        cut = mask.clone()
+        cut[live & hubs[scatter.long().clamp(0, n - 1)]] = 0
+        res = {"hubs": int(hubs.sum()), "hub_edges": int(deg[hubs].sum()),
+               "live_edges": int(live.sum()), "max_degree": int(deg.max()),
+               "degree_histogram": {
+                   k: int(((deg >= a) & (deg <= b)).sum()) for k, (a, b) in {
+                       "0": (0, 0), "1": (1, 1), "2-15": (2, 15),
+                       "16-255": (16, 255),
+                       f">={min_degree}": (min_degree, 1 << 30)}.items()}}
+        with kept_counts():
+            for name, m in (("as_is", mask), ("hubs_masked", cut)):
+                plan = gms.make_plan(scatter, m, offs, n)
+                res[name] = kernel_split(
+                    lambda m=m, plan=plan: gms._launch(
+                        table, w, gather, m, offs, n, torch.float32, plan))
+        out[what] = res
+    log(f"config 3 gms hub probe: {out}")
+    return out
 
 
 def run_learned_config3(snapshot, oracle: dict, dev) -> dict:
@@ -540,7 +640,12 @@ def run_learned_config3(snapshot, oracle: dict, dev) -> dict:
     err = gms_check(args, offs, pn, "config-3 layout")
     gms_check(args, offs, pn, "config-3 layout, bf16 operands",
               compute_dtype="bfloat16")
+    with kept_counts():
+        digest("config3_gms_f32", gms.gather_matmul_segment(*args, offs, pn))
+        digest("config3_gms_bf16", gms.gather_matmul_segment(
+            *args, offs, pn, compute_dtype="bfloat16"))
     timing = gms_timing(args, offs, pn)
+    timing["hubs"] = hub_probe(args, offs, pn)
     # the whole forward on resident tensors, kernel and plain message pass
     fwd_args = [arrays[k] for k in gnn._BATCH_ARRAYS]
     with kept_counts():
@@ -1082,10 +1187,15 @@ def tick_timing(scorer, check: str) -> dict:
         t = timed(lambda: kernel(*k_args, **kw), lambda: plain(*p_args, **kw))
         t["composed_ms"] = device_ms(lambda: _gnn_tick(
             *c_args, pk, ek, pi, 0, 0, offs, None))
-        t["ms_by_kernel"] = {
-            (re.findall(r"\w+_kernel", name) or [name])[0]: ms
-            for name, ms in device_ms(lambda: kernel(*k_args, **kw),
-                                      by_kernel=True).items()}
+        t["ms_by_kernel"] = kernel_split(lambda: kernel(*k_args, **kw))
+    # the logits of one tick on the churned state (or on the one kept in
+    # --state-dir), with the digest of that tick's inputs
+    d_state = shared_state(state, f"config4_{check}")
+    d_args, d_kw = tick_operands(d_state, check, dev)
+    with kept_counts():
+        digest(f"config4_{check}_logits", kernel(*d_args, **d_kw)[6])
+    digest(f"config4_{check}_inputs", d_state["features"],
+           *d_state["mirrors"], d_state["ints"])
     p = state["params"]
     live = int((state["mirrors"][5] != 0).sum())
     b = fk.bound(pn=state["features"].shape[0], pe=int(offs[-1]), live=live,
@@ -1340,23 +1450,25 @@ def gms_backward_config3(args: tuple, offs, n: int) -> dict:
             a.cpu(), b, f"gms backward at config 3: {name}")
     if not dw.abs().sum() > 0:
         raise AssertionError("gms backward at config 3: dw is zero")
+    digest("config3_dh", dh)
+    digest("config3_dw", dw)
     gw_err, gw_rel = grad_w_check(h, ct, src, dst, mask, offs, nr,
                                   "config-3 layout")
     w_t = w_rel.transpose(1, 2)
     with kept_counts():
         t = timed(lambda: grad_w.gms_grad_w(h, ct, src, dst, mask, offs, nr),
                   lambda: gms_grad_w(h, ct, src, dst, mask, offs, nr))
-        t["ms_by_kernel"] = {
-            (re.findall(r"\w+_kernel", name) or [name])[0]: ms
-            for name, ms in device_ms(
-                lambda: grad_w.gms_grad_w(h, ct, src, dst, mask, offs, nr),
-                by_kernel=True).items()}
+        t["ms_by_kernel"] = kernel_split(
+            lambda: grad_w.gms_grad_w(h, ct, src, dst, mask, offs, nr))
         t["composition_ms"] = device_ms(lambda: torch_grad_w_composition(
             h, ct, src, dst, mask, offs, nr))
         t["dh_ms"] = device_ms(lambda: gms._launch(
             ct, w_t, dst, mask, offs, n, torch.float32,
             gms.make_plan(src, mask, offs, n)))
         t["src_csr_ms"] = device_ms(lambda: gms.make_plan(src, mask, offs, n))
+        src_plan = gms.make_plan(src, mask, offs, n)
+        t["dh_ms_by_kernel"] = kernel_split(lambda: gms._launch(
+            ct, w_t, dst, mask, offs, n, torch.float32, src_plan))
         comp = torch_grad_w_composition(h, ct, src, dst, mask, offs, nr)
     t["composition_max_abs_err"] = float((comp.cpu() - dw.cpu()).abs().max())
     nbytes, ops = grad_w.bound(src.cpu().numpy(), dst.cpu().numpy(),
@@ -1717,17 +1829,33 @@ def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
     return res
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    import argparse
+
     import torch
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "NVIDIA GPU (see the module docstring).")
+    ap.add_argument("--package-dir", default=os.path.dirname(
+        os.path.abspath(__file__)), help="directory holding the port's "
+        "package to drive (default: this script's); another tree's, to "
+        "compare two trees on one card with the same phases")
+    ap.add_argument("--state-dir", help="keep the config-4 tick states "
+                    "that the digests hash here (inside the checkout): the "
+                    "first run saves them, later runs load them")
+    opts = ap.parse_args(argv)
+    global STATE_DIR
+    STATE_DIR = opts.state_dir
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script needs a GPU")
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.abspath(opts.package_dir))
     try:
-        import kubernetes_aiops_evidence_graph_tpu_torch  # noqa: F401
+        import kubernetes_aiops_evidence_graph_tpu_torch as port
     except ImportError as exc:
-        log(f"chip_smoke: the port's package is not beside this script ({exc})")
+        log(f"chip_smoke: the port's package is not in {opts.package_dir} "
+            f"({exc})")
         return 2
+    log(f"driving {os.path.dirname(port.__file__)}")
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import _build
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
@@ -2043,6 +2171,27 @@ def main() -> int:
             "harvested", "train_steps", "final_loss", "gate", "swapped",
             "cycle_s", "finetune_s", "finetune_ms_per_step",
             "probs_vs_fresh_forward_max_abs_err")}}))
+    # the numbers to hold a tree against its parent on one card: the
+    # message pass split by kernel, and what it moves end to end
+    print(json.dumps({"gms_compare": {
+        "config3_forward_ms_by_kernel": learned3["timing"]["ms_by_kernel"],
+        "config3_gms_ms": learned3["timing"]["ms"],
+        "config3_plan_ms": learned3["timing"]["plan_ms"],
+        "config3_dh_ms": bwd3["dh_ms"],
+        "config3_dh_ms_by_kernel": bwd3["dh_ms_by_kernel"],
+        "config3_hubs": learned3["timing"]["hubs"],
+        "config4_gms_ms": learned4["timing"]["ms"],
+        "config4_ms_by_kernel": learned4["timing"]["ms_by_kernel"],
+        "config3_learned_forward_ms": learned3["timing"]["forward_ms"],
+        "config3_train_step_ms": {k: step3[k] for k in (
+            "forward_ms", "backward_ms", "optimizer_ms", "step_ms")},
+        "config4_tick_ms": {
+            "composed": tiers["fused"]["timing"]["composed_ms"],
+            **{t: r["timing"]["ms"] for t, r in tiers.items()}},
+        "config4_learned_events_per_s": {
+            "composed": learned4["events_per_s"],
+            **{t: r["events_per_s"] for t, r in tiers.items()}}}}))
+    print(json.dumps({"digests": DIGESTS}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2052,4 +2201,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

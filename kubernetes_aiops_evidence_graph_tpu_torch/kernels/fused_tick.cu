@@ -29,8 +29,8 @@
 // into the other. The tick is a chain of short kernels on the caller's
 // stream rather than one persistent kernel with a grid-wide barrier per
 // phase: every phase is a different parallel shape (one warp for the
-// ordered scatter, 64-row tiles for the products, one warp per
-// destination for the ordered sums), and a kernel boundary is the
+// ordered scatter, 64-row tiles for the products, one warp per eight
+// destinations for the ordered sums), and a kernel boundary is the
 // barrier. The dst-CSR the ordered sums walk is built between the scatter
 // and the forward by the wrapper (kernels/gms.py make_plan, a stable sort
 // of the scattered edst), once per tick for all layers.
@@ -55,11 +55,12 @@
 // L 3, 64,014 live edges, Pi 512, 11 classes): operations,
 // 2 (Pn DIM H + L (live H H + Pn H H) + Pi H C) = 3.6e9 float32 operations
 // = 0.054 ms at 67 TFLOP/s; the bytes the tick must read and write once
-// are ~15 MB (0.005 ms). This first version does float32 FMA from shared
-// memory, sends msg [E, H] to device memory and back each layer, and
-// blocks B4's embed and update by node_block rows (32 blocks at 2048).
-// Tensor cores, TMA / cp.async pipelines and fusing the segment walk are
-// later work.
+// are ~15 MB (0.005 ms). This version does float32 FMA from shared
+// memory (the message pass with w_rel held per run of tiles and its
+// gathers in flight by cp.async, gms_device.cuh), sends msg [E, H] to
+// device memory and back each layer, and blocks B4's embed and update by
+// node_block rows (32 blocks at 2048). Tensor cores, TMA pipelines and
+// fusing the segment walk are later work.
 //
 // Plain C interface for ctypes; each function returns the
 // cudaGetLastError() code after its launches (0 = success).
@@ -71,6 +72,7 @@
 namespace {
 
 constexpr int kRowTile = 64;     // node rows per product tile
+constexpr int kThreads = 256;    // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kColTile = 64;     // output columns per block
 constexpr int kDepth = 32;       // depth staged per step
 
@@ -300,7 +302,7 @@ __global__ void readout_kernel(const float* __restrict__ h, int pn, int hid,
 }
 
 struct Forward {
-    int pn, dim, hid, classes, n_kinds, n_rel, n_layers, pe, pi;
+    int pn, dim, hid, classes, n_kinds, n_rel, n_layers, n_runs, pi;
     int rows_per_block;
     const float* const* params;   // embed_w, embed_b, kind_emb, head_w, head_b
     const float* const* layers;   // per layer: w_self, w_rel, b
@@ -308,7 +310,7 @@ struct Forward {
     const float* nmask;
     const int* esrc;
     const float* emask;
-    const int* off;
+    const int* runs;              // the message pass's tile runs
     const int* perm;
     const int* rowptr;
     const int* inc;               // [pi] incident rows, then [pi] masks
@@ -338,8 +340,8 @@ int run_forward(const Forward& f, Table feat, cudaStream_t s) {
         float* cur = li % 2 ? f.h_b : f.h_a;
         float* nxt = li % 2 ? f.h_a : f.h_b;
         const int rc = gms_pass<float, kBf16>(
-            cur, f.pn, f.hid, layer[1], f.n_rel, f.hid, f.esrc, f.emask,
-            f.off, f.pe, f.perm, f.rowptr, f.pn, f.msg, nxt, s);
+            cur, f.pn, f.hid, layer[1], f.hid, f.esrc, f.emask, f.runs,
+            f.n_runs, f.perm, f.rowptr, f.pn, f.msg, nxt, s);
         if (rc != 0) return rc;
         update_kernel<kBf16><<<grid, kThreads, 0, s>>>(
             cur, nxt, f.inv_deg, layer[0], layer[2], f.pn, f.hid,
@@ -362,15 +364,15 @@ Forward make_forward(int pn, int dim, int hid, int classes, int n_kinds,
                      int n_rel, const void* const* params,
                      const void* const* layers, int n_layers,
                      const void* kind, const void* nmask, const void* esrc,
-                     const void* emask, const void* off, int pe,
+                     const void* emask, const void* runs, int n_runs,
                      const void* perm, const void* rowptr, const void* inc,
                      int pi, void* inv_deg, void* msg, void* h_a, void* h_b,
                      void* logits, void* probs, int rows_per_block) {
-    return Forward{pn, dim, hid, classes, n_kinds, n_rel, n_layers, pe, pi,
-                   rows_per_block, (const float* const*)params,
+    return Forward{pn, dim, hid, classes, n_kinds, n_rel, n_layers, n_runs,
+                   pi, rows_per_block, (const float* const*)params,
                    (const float* const*)layers, (const int*)kind,
                    (const float*)nmask, (const int*)esrc, (const float*)emask,
-                   (const int*)off, (const int*)perm, (const int*)rowptr,
+                   (const int*)runs, (const int*)perm, (const int*)rowptr,
                    (const int*)inc, (float*)inv_deg, (float*)msg,
                    (float*)h_a, (float*)h_b, (float*)logits, (float*)probs};
 }
@@ -396,14 +398,14 @@ extern "C" int fused_gnn_tick(
     int bf16, const void* features, int pn, int dim, int hid, int classes,
     int n_kinds, int n_rel, const void* const* params,
     const void* const* layers, int n_layers, const void* kind,
-    const void* nmask, const void* esrc, const void* emask, const void* off,
-    int pe, const void* perm, const void* rowptr, const void* inc, int pi,
+    const void* nmask, const void* esrc, const void* emask, const void* runs,
+    int n_runs, const void* perm, const void* rowptr, const void* inc, int pi,
     void* inv_deg, void* msg, void* h_a, void* h_b, void* logits,
     void* probs, void* stream) {
     const Forward f = make_forward(
         pn, dim, hid, classes, n_kinds, n_rel, params, layers, n_layers, kind,
-        nmask, esrc, emask, off, pe, perm, rowptr, inc, pi, inv_deg, msg, h_a,
-        h_b, logits, probs, kRowTile);
+        nmask, esrc, emask, runs, n_runs, perm, rowptr, inc, pi, inv_deg, msg,
+        h_a, h_b, logits, probs, kRowTile);
     return dispatch(bf16, f, F32Table{(const float*)features},
                     (cudaStream_t)stream);
 }
@@ -415,13 +417,13 @@ extern "C" int fused_gnn_tick_dma(
     int node_block, int pn, int dim, int hid, int classes, int n_kinds,
     int n_rel, const void* const* params, const void* const* layers,
     int n_layers, const void* kind, const void* nmask, const void* esrc,
-    const void* emask, const void* off, int pe, const void* perm,
+    const void* emask, const void* runs, int n_runs, const void* perm,
     const void* rowptr, const void* inc, int pi, void* inv_deg, void* msg,
     void* h_a, void* h_b, void* logits, void* probs, void* stream) {
     const Forward f = make_forward(
         pn, dim, hid, classes, n_kinds, n_rel, params, layers, n_layers, kind,
-        nmask, esrc, emask, off, pe, perm, rowptr, inc, pi, inv_deg, msg, h_a,
-        h_b, logits, probs, node_block);
+        nmask, esrc, emask, runs, n_runs, perm, rowptr, inc, pi, inv_deg, msg,
+        h_a, h_b, logits, probs, node_block);
     cudaStream_t s = (cudaStream_t)stream;
     if (feat_type == 1)
         return dispatch(bf16, f,

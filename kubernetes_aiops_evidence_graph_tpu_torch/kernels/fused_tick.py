@@ -72,8 +72,8 @@ def _library() -> ctypes.CDLL:
         forward = [
             i, i, i, i, i, i, pp, pp, i,    # pn, dim, hid, classes, kinds, rels,
             #                                 params, layers, n_layers
-            p, p, p, p, p, i, p, p, p, i,   # kind, nmask, esrc, emask, off, pe,
-            #                                 perm, rowptr, inc, pi
+            p, p, p, p, p, i, p, p, p, i,   # kind, nmask, esrc, emask, runs,
+            #                                 n_runs, perm, rowptr, inc, pi
             p, p, p, p, p, p, p]            # inv_deg, msg, h_a, h_b, logits,
         #                                     probs, stream
         lib.fused_gnn_tick.argtypes = [i, p] + forward
@@ -181,8 +181,9 @@ def _launch(params, features, mirrors, ints, h_a, h_b, pk, ek, pi, offs,
             _ptr(layer[k]) for layer in layers for k in ("w_self", "w_rel", "b")))
         forward = (pn, dim, hid, classes, n_kinds, n_rel, param_ptrs,
                    layer_ptrs, len(layers), _ptr(kind), _ptr(nmask), _ptr(esrc),
-                   _ptr(emask), _ptr(plan.offsets), pe, _ptr(plan.perm),
-                   _ptr(plan.rowptr), ints.data_ptr() + 4 * (3 * pk + 5 * ek),
+                   _ptr(emask), _ptr(plan.runs), plan.n_runs,
+                   _ptr(plan.perm), _ptr(plan.rowptr),
+                   ints.data_ptr() + 4 * (3 * pk + 5 * ek),
                    pi, _ptr(inv_deg), _ptr(msg), _ptr(h_a), _ptr(h_b),
                    _ptr(logits), _ptr(probs), stream)
         bf16 = int(cdt == torch.bfloat16)

@@ -8,15 +8,18 @@ summed in ascending edge index from zero: what the JAX package's
 ``ops/segment.py::gather_matmul_segment``) computes.
 
 On a CUDA tensor it launches ``gms.cu`` (a tile kernel that writes each
-live edge's message row, then an ordered per-destination walk over a
-dst-CSR; no floating-point atomics, so the result is the same bit for bit
-on every run). On a CPU tensor it runs the plain version,
+live edge's message row, walking runs of one relation's tiles
+(:func:`tile_runs`) with ``w_rel[r]`` held in shared memory, then an
+ordered per-destination walk over a dst-CSR; no floating-point atomics,
+so the result is the same bit for bit on every run). On a CPU tensor it
+runs the plain version,
 ``ops/segment.gather_matmul_segment``, which the tests hold against the
 JAX package and ``chip_smoke.py`` holds the kernel against on the card.
 There is no fallback from one to the other.
 
-The dst-CSR (:func:`make_plan`) depends only on the layout, so a forward
-builds it once and passes it to each of its L layers.
+The dst-CSR and the tile runs (:func:`make_plan`) depend only on the
+layout, so a forward builds them once and passes them to each of its L
+layers.
 
 On the card the pass is differentiable in ``h`` and ``w_rel`` (a
 ``torch.autograd.Function``, entered only when a gradient is wanted): the
@@ -48,8 +51,22 @@ launches = 0
 """Kernel launches so far (one per message pass); a run resets it to show
 that its path went through the kernel. Plain-version calls never count."""
 
+RUNS_TARGET = 2112
+"""Tile runs a layout is cut into, about: sixteen for each of an H100's
+132 SMs, which hold six blocks each at H = 64: about three waves, so the
+last wave's tail is short. Runs only share out the work: each message row
+is computed whole by one block, so the cut never changes a bit."""
+RUN_TILES_MAX = 16
+"""Most 64-edge tiles in one run (``gms_device.cuh`` kRunTiles)."""
+MAX_HIDDEN = 768
+"""Largest H (the depth of ``w_rel``) the kernel takes: a block holds a
+``[H, 64]`` column block of ``w_rel[r]`` in shared memory
+(``gms_device.cuh`` kMaxHid)."""
+
+_EDGE_TILE = 64
 _lib: ctypes.CDLL | None = None
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_runs_cache: dict = {}
 
 
 def _library() -> ctypes.CDLL:
@@ -59,8 +76,8 @@ def _library() -> ctypes.CDLL:
         lib = _build.load("gms")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gms_launch.argtypes = [
-            i, p, i, i, p, i, i,            # dtype, h, n_h, H, w_rel, R, K
-            p, p, p, i,                     # src, mask, offsets, edges
+            i, p, i, i, p, i,               # dtype, h, n_h, H, w_rel, K
+            p, p, p, i,                     # src, mask, runs, n_runs
             p, p, i, p, p, p]               # perm, rowptr, N, msg, out, stream
         lib.gms_launch.restype = ctypes.c_int
         lib.gms_error_string.argtypes = [ctypes.c_int]
@@ -73,10 +90,11 @@ def _library() -> ctypes.CDLL:
 class GmsPlan:
     """The dst-CSR of one edge layout: ``perm[rowptr[d]:rowptr[d+1]]``
     are the live edges (mask != 0, inside a relation slice) with
-    destination ``d``, in ascending edge index."""
+    destination ``d``, in ascending edge index; and the layout's tile
+    runs (:func:`tile_runs`) on the device."""
     rel_offsets: tuple[int, ...]
     num_segments: int
-    offsets: torch.Tensor     # [R+1] int32
+    runs: torch.Tensor        # [n_runs * 3] int32
     perm: torch.Tensor        # [live] int32 edge indices
     rowptr: torch.Tensor      # [N+1] int32
     _transposed: list = field(default_factory=list, compare=False,
@@ -99,6 +117,38 @@ class GmsPlan:
             raise ValueError("the plan's src-CSR was built for other src / "
                              "mask tensors or another row count")
         return plan
+
+    @property
+    def n_runs(self) -> int:
+        return self.runs.numel() // 3
+
+
+def tile_runs(rel_offsets: tuple[int, ...]) -> np.ndarray:
+    """The tile kernel's work: ``[n, 3]`` int32 rows ``(relation, first
+    edge, end edge)``, each a run of whole 64-edge tiles of one relation's
+    slice cut from the slice's start (the last run of a slice may end on
+    a partial tile), in edge order. Every run but a slice's last has the
+    same tile count: ``ceil(tiles / RUNS_TARGET)`` capped at
+    :data:`RUN_TILES_MAX`. Zero-width slices have no run."""
+    offs = [int(o) for o in rel_offsets]
+    tiles = sum(-(-(hi - lo) // _EDGE_TILE) for lo, hi in zip(offs, offs[1:]))
+    per_run = _EDGE_TILE * min(RUN_TILES_MAX, max(1, -(-tiles // RUNS_TARGET)))
+    runs = [(r, start, min(hi, start + per_run))
+            for r, (lo, hi) in enumerate(zip(offs, offs[1:]))
+            for start in range(lo, hi, per_run)]
+    return np.asarray(runs, np.int32).reshape(-1, 3)
+
+
+def _device_runs(offs: tuple[int, ...], dev: torch.device) -> torch.Tensor:
+    """:func:`tile_runs` of ``offs`` on ``dev``, uploaded once per layout."""
+    key = (offs, str(dev))
+    hit = _runs_cache.get(key)
+    if hit is None:
+        hit = torch.from_numpy(tile_runs(offs).reshape(-1)).to(dev)
+        if len(_runs_cache) >= 64:
+            _runs_cache.clear()
+        _runs_cache[key] = hit
+    return hit
 
 
 def _check_offsets(offs: tuple[int, ...], num_edges: int) -> None:
@@ -130,8 +180,7 @@ def make_plan(dst: torch.Tensor, mask: torch.Tensor,
     else:
         perm = torch.zeros(0, dtype=torch.int32, device=dev)
         rowptr = torch.zeros(num_segments + 1, dtype=torch.int32, device=dev)
-    return GmsPlan(offs, int(num_segments),
-                   torch.tensor(offs, dtype=torch.int32, device=dev),
+    return GmsPlan(offs, int(num_segments), _device_runs(offs, dev),
                    perm.contiguous(), rowptr.contiguous())
 
 
@@ -155,7 +204,9 @@ def _launch(table: torch.Tensor, w: torch.Tensor, gather: torch.Tensor,
     global launches
     dev = table.device
     n_h, hid = table.shape
-    n_rel, _, k_out = w.shape
+    k_out = w.shape[-1]
+    if hid > MAX_HIDDEN:
+        raise ValueError(f"gms takes H up to {MAX_HIDDEN}, got {hid}")
     h_c = table.to(cdt).contiguous()
     w_c = w.to(cdt).contiguous()
     m_c = mask.to(cdt).contiguous()
@@ -169,10 +220,10 @@ def _launch(table: torch.Tensor, w: torch.Tensor, gather: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.gms_launch(
             _DTYPE_CODE[cdt], h_c.data_ptr(), n_h, hid, w_c.data_ptr(),
-            n_rel, k_out, gather.data_ptr(), m_c.data_ptr(),
-            plan.offsets.data_ptr(), n_edges, plan.perm.data_ptr(),
-            plan.rowptr.data_ptr(), num_segments, msg.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            k_out, gather.data_ptr(), m_c.data_ptr(), plan.runs.data_ptr(),
+            plan.n_runs, plan.perm.data_ptr(), plan.rowptr.data_ptr(),
+            num_segments, msg.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("gms launch failed: "
                            + lib.gms_error_string(rc).decode())

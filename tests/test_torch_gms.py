@@ -15,7 +15,7 @@ from kubernetes_aiops_evidence_graph_tpu.ops.segment import (
 from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms
 from kubernetes_aiops_evidence_graph_tpu_torch.ops.segment import (
     gather_matmul_segment)
-from tests.test_torch_gms_cuda import CASES, layout
+from tests.test_torch_gms_cuda import CASES, LAYOUTS, layout
 
 # one intra-op thread: these tensors are small, and the suite runs
 # several pytest workers side by side on the host's cores
@@ -147,3 +147,78 @@ def test_wrapper_runs_plain_version_only_for_cpu_tensors():
     np.testing.assert_array_equal(out.numpy(), _port(a))
     with pytest.raises(ValueError, match="cuda or cpu"):
         gms.gather_matmul_segment(*[x.to("meta") for x in t], offs, n)
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_plain_version_equals_jax_on_hard_layouts(name):
+    """The layouts the CUDA test stresses the kernel with (hubs of 600 and
+    2,000 edges, unsorted slices with holes, unaligned offsets, empty
+    slices, E = 0, H x K of 40 x 24, 128 x 64, 24 x 72 and 10 x 7): the
+    plain version within 1e-5 of the JAX package's XLA kernel and of a
+    float64 oracle in edge order."""
+    a = LAYOUTS[name]()
+    hmat, w_rel, src, dst, mask, offs, n = a
+    mine = _port(a)
+    j = [jnp.asarray(x) for x in (hmat, w_rel, src, dst, mask)]
+    xla = np.asarray(jax_gms(*j, offs, n))
+    np.testing.assert_allclose(mine, xla, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(mine, _f64(a), rtol=1e-5, atol=1e-4)
+
+
+def _runs_by_brute_force(offs):
+    """Tile runs from their definition, edge by edge: a slice's edges in
+    order, a new run every ``per_run`` edges from the slice's start, with
+    per_run = 64 * min(RUN_TILES_MAX, max(1, ceil(tiles / RUNS_TARGET)))
+    and tiles = the 64-edge tiles of all slices."""
+    tiles = 0
+    for lo, hi in zip(offs, offs[1:]):
+        tiles += len(range(lo, hi, 64))
+    per_tiles = 1
+    while (per_tiles < gms.RUN_TILES_MAX
+           and per_tiles * gms.RUNS_TARGET < tiles):
+        per_tiles += 1
+    per_run = 64 * per_tiles
+    runs = []
+    for r, (lo, hi) in enumerate(zip(offs, offs[1:])):
+        for e in range(lo, hi):
+            if (e - lo) % per_run == 0:
+                runs.append([r, e, e + 1])
+            else:
+                runs[-1][2] = e + 1
+    return runs, per_run
+
+
+RUN_OFFSETS = {
+    "aligned": (0, 64, 192, 192, 256),
+    "unaligned": (0, 5, 5, 22, 92, 93, 96, 296),
+    "empty_slices": (0, 0, 0, 640, 640, 1000),
+    "e_zero": (0, 0, 0),
+    "one_relation_none": (0,),
+    "nonzero_start": (10, 10, 75, 400),
+    "config3": (0, 57048, 127334, 202534, 272534, 273038, 273138, 273238,
+                273238, 273238),
+    "capped_at_16_tiles": (0, 1_200_000, 2_500_000, 2_500_001),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RUN_OFFSETS))
+def test_tile_runs_equal_a_brute_force_cut(name):
+    """The host-side cut of the tile kernel's work (``gms.tile_runs``)
+    against its definition on the same offsets: the same runs; each run
+    inside one slice and at most RUN_TILES_MAX tiles; the runs cover every
+    slice's edges once, in order; make_plan carries them to the device."""
+    offs = RUN_OFFSETS[name]
+    runs = gms.tile_runs(offs)
+    want, per_run = _runs_by_brute_force(offs)
+    assert runs.dtype == np.int32 and runs.shape == (len(want), 3)
+    assert runs.tolist() == want
+    assert per_run <= 64 * gms.RUN_TILES_MAX
+    covered = [e for _, a, b in want for e in range(a, b)]
+    assert covered == list(range(offs[0], offs[-1]))
+    for r, a, b in want:
+        assert offs[r] <= a < b <= offs[r + 1] and b - a <= per_run
+    if offs[-1] <= 2000:
+        dst = torch.zeros(offs[-1], dtype=torch.int32)
+        plan = gms.make_plan(dst, torch.ones(offs[-1]), offs, 4)
+        assert plan.n_runs == len(want)
+        assert plan.runs.tolist() == runs.reshape(-1).tolist()
