@@ -63,7 +63,10 @@ the learned model's training, offline (``rca/train.py``) and online
    split into forward, backward and optimizer; then the offline trainer
    on the card (a cut of the JAX package's product-scale run: 12
    episodes over 96-2,048 pods, 8 incidents, 300 steps, holdout 2): the
-   loss falls, the checkpoint reloads leaf for leaf;
+   loss falls, the checkpoint reloads leaf for leaf; then ``grad_w`` is
+   timed where its launches are: one step on each distinct batch the
+   trainer stepped on, split by kernel, with its bound there
+   (``grad_w_at_steps``; the online learner's batches the same in 10);
 8. both ``fused_tick`` entry points against their plain versions on a
    CPU copy, with the shipped weights: repeated and out-of-range delta
    entries with zero-width and all-padding slices, every slice padding,
@@ -84,8 +87,9 @@ the learned model's training, offline (``rca/train.py``) and online
    rtol 1e-4 / atol 1e-5), the tier's kernel must have launched once a
    tick, and the kernels must equal their plain versions on the resident
    state (config 4's resident shape, Pn 65,536) after the first tick and
-   after the churn, as in 7; each tier's tick is then timed beside the
-   composed tick at the same shape; the rules run adds 500 events
+   after the churn, as in 8; each tier's tick is then timed beside the
+   composed tick at the same shape and split by kernel (the int8 run also
+   times the bf16 table); the rules run adds 500 events
    through ``tick_async`` + ``serve(newest=True)``; on the fused tier's
    resident state after the churn, the fused tick's grads (its autograd
    Function) within 1e-4 of the composed path's autograd on a CPU copy,
@@ -98,8 +102,9 @@ the learned model's training, offline (``rca/train.py``) and online
    fresh forward with the candidate;
 11. prints a ``{"gms_compare": {...}}`` line (the message pass split by
    kernel at config 3, forward and dh, and config 4; the hub probe; the
-   learned forward, the train step, the ticks per tier and learned
-   events/s), a ``{"digests": {...}}`` line (sha256 of the output bytes of
+   learned forward, the train step, the ticks per tier, each split by
+   kernel, and learned events/s; ``grad_w`` per launch at the trainer's
+   and the learner's batches), a ``{"digests": {...}}`` line (sha256 of the output bytes of
    ``gms`` at config 3, f32 and bf16 operands, of the backward's dh and dw
    there, and of the fused and streamed ticks' logits on config 4's
    resident state after the churn), one ``{"kernels": [...]}`` line with
@@ -282,9 +287,13 @@ def device_ms(fn, iters: int = 20, by_kernel: bool = False):
 
 def kernel_split(fn, iters: int = 20) -> dict:
     """Device time of ``fn`` per kernel (profiler), keyed by the kernel's
-    function name (``gms_tile_kernel``, ``gms_segment_kernel``, ...)."""
-    return {(re.findall(r"\w+_kernel", name) or [name])[0]: ms
-            for name, ms in device_ms(fn, iters, by_kernel=True).items()}
+    function name (``gms_tile_kernel``, ``gms_segment_kernel``, ...);
+    kernels that share a function name (instances of one template, torch's
+    elementwise kernels) add up under it."""
+    split: dict[str, float] = collections.defaultdict(float)
+    for name, ms in device_ms(fn, iters, by_kernel=True).items():
+        split[(re.findall(r"\w+_kernel", name) or [name[:80]])[0]] += ms
+    return dict(split)
 
 
 DIGESTS: dict[str, str] = {}
@@ -1302,6 +1311,11 @@ def run_streaming_learned(tier: str = "composed", num_pods: int = 10_000,
     log(f"config 4 learned {tier} tick timing: {timing}")
     out.update(timing=timing, max_abs_err=max(errs + [err]))
     out["shape"]["live_edges"] = timing["live_edges"]
+    if tier == "dma_int8":
+        # the streamed tick's third table, on the same resident state
+        out["timing_bf16_table"] = tick_timing(scorer, "dma_bf16_table")
+        log("config 4 learned dma_bf16_table tick timing: "
+            f"{out['timing_bf16_table']}")
     return out
 
 
@@ -1627,6 +1641,83 @@ def run_train_step_config3(snapshot, oracle: dict, dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recorded_steps(module, factory: str, batch_arg: int):
+    """Wrap the step factory ``module.factory`` for the run inside: every
+    step it makes records its arguments once per distinct batch (the
+    positional argument ``batch_arg``) and counts the steps taken on it.
+    Yields ``(entries, make)``; ``make()`` is a fresh step of the run's
+    optimizer."""
+    made = getattr(module, factory)
+    entries: dict[int, dict] = {}
+    optimizers: list = []
+
+    def wrapped(optimizer_factory):
+        optimizers.append(optimizer_factory)
+        inner = made(optimizer_factory)
+
+        def step(*args, **kw):
+            e = entries.setdefault(id(args[batch_arg]),
+                                   {"args": args, "kw": kw, "steps": 0})
+            e["steps"] += 1
+            return inner(*args, **kw)
+        return step
+    setattr(module, factory, wrapped)
+    try:
+        yield entries, lambda: made(optimizers[0])
+    finally:
+        setattr(module, factory, made)
+
+
+B5_KERNELS = ("grad_w_partial_kernel", "grad_w_reduce_kernel")
+
+
+def grad_w_at_steps(entries: dict, make, batch_arg: int, params) -> dict:
+    """B5 where its launches are: for each distinct batch a training run
+    stepped on, one step from ``params`` split by kernel (profiler), B5's
+    device time per launch there (its two kernels over its launches in
+    the step) and B5's bound on that batch's layout; the run's mean per
+    launch, weighted by the steps taken on each batch."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import grad_w
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    step = make()
+    rows = []
+    with kept_counts():
+        for e in entries.values():
+            rest, kw = e["args"][2:], e["kw"]
+            b = e["args"][batch_arg]
+            p, opt, _ = step(gnn.trainable(params), None, *rest, **kw)
+            torch.cuda.synchronize()
+            before = grad_w.launches
+            step(p, opt, *rest, **kw)
+            torch.cuda.synchronize()
+            per_step = grad_w.launches - before
+            split = kernel_split(lambda: step(p, opt, *rest, **kw), iters=10)
+            offs = tuple(kw["rel_offsets"])
+            hid = int(params["embed_b"].shape[0])
+            nr = int(params["layers"][0]["w_rel"].shape[0])
+            nbytes, ops = grad_w.bound(*(b[k].cpu().numpy() for k in (
+                "edge_src", "edge_dst", "edge_mask")), offs, hid, hid, nr)
+            rows.append({
+                "pn": int(b["features"].shape[0]), "pe": offs[-1],
+                "live_edges": ops // (2 * hid * hid), "steps": e["steps"],
+                "launches_per_step": per_step,
+                "ms_per_launch": sum(split.get(k, 0.0) for k in B5_KERNELS)
+                / max(per_step, 1),
+                "step_ms": sum(split.values()),
+                "step_ms_by_kernel": dict(sorted(
+                    split.items(), key=lambda kv: -kv[1])[:8]),
+                **bound_of(nbytes, ops)})
+    weight = [r["steps"] * r["launches_per_step"] for r in rows]
+    total = max(sum(weight), 1)
+    return {"ms_per_launch": sum(w * r["ms_per_launch"]
+                                 for w, r in zip(weight, rows)) / total,
+            "bound_ms": sum(w * r["bound_ms"]
+                            for w, r in zip(weight, rows)) / total,
+            "launches": sum(weight), "by_batch": rows}
+
+
 def run_offline_train(dev) -> dict:
     """Offline train() on the card, a cut of the JAX package's
     product-scale run (BASELINE.md: 130 episodes over 96-2048 pods, 8
@@ -1641,11 +1732,12 @@ def run_offline_train(dev) -> dict:
         save_checkpoint, train)
     cut = dict(episodes=12, steps=300, num_pods=[96, 256, 512, 1024, 2048],
                num_incidents=8, eval_holdout=2, seed=0)
-    reset_counts()
-    t0 = time.perf_counter()
-    out = train(device=dev, **cut)
-    wall = time.perf_counter() - t0
-    counts = read_counts()
+    with recorded_steps(gnn, "make_train_step", 2) as (entries, make):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train(device=dev, **cut)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
     hist = out["metrics"]["history"]
     if not hist[-1]["loss"] < hist[0]["loss"]:
         raise AssertionError(f"offline train: the loss did not fall {hist}")
@@ -1664,7 +1756,8 @@ def run_offline_train(dev) -> dict:
            "holdout_accuracy": out["metrics"]["holdout_accuracy"],
            "train_accuracy": out["metrics"]["train_accuracy"],
            "first_loss": hist[0]["loss"], "final_loss": hist[-1]["loss"],
-           **out["timing"]}
+           **out["timing"],
+           "grad_w": grad_w_at_steps(entries, make, 2, out["params"])}
     log(f"offline train on the card: {res}")
     return res
 
@@ -1744,7 +1837,8 @@ def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
     import torch
     from kubernetes_aiops_evidence_graph_tpu_torch.graph.snapshot import (
         build_snapshot)
-    from kubernetes_aiops_evidence_graph_tpu_torch.learn import OnlineLearner
+    from kubernetes_aiops_evidence_graph_tpu_torch.learn import (
+        OnlineLearner, trainer)
     from kubernetes_aiops_evidence_graph_tpu_torch.models import (
         Hypothesis, HypothesisCategory, HypothesisFeedback, HypothesisSource)
     from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
@@ -1785,12 +1879,13 @@ def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
         candidates.append(res["params"])
         return res
     learner.train_candidate = timed_candidate
-    reset_counts()
-    t0 = time.perf_counter()
-    out = learner.run_once()
-    torch.cuda.synchronize()
-    cycle_s = time.perf_counter() - t0
-    counts = read_counts()
+    with recorded_steps(trainer, "make_finetune_step", 4) as (entries, make):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = learner.run_once()
+        torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t0
+        counts = read_counts()
     steps = int(settings.learn_steps)
     if not (out["harvested"] >= 1 and out["trained"]
             and out["train_steps"] == steps and "gate" in out):
@@ -1802,7 +1897,8 @@ def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
            "final_loss": out["final_loss"], "gate": out["gate"],
            "swapped": out["swapped"], "launches": counts,
            "cycle_s": cycle_s, "finetune_s": tune_s[0],
-           "finetune_ms_per_step": tune_s[0] / steps * 1e3}
+           "finetune_ms_per_step": tune_s[0] / steps * 1e3,
+           "grad_w": grad_w_at_steps(entries, make, 4, candidates[0])}
     if out["swapped"]:
         served = scorer.rescore()
         if served["params_generation"] != 1 or out["generation"] != 1:
@@ -2061,6 +2157,12 @@ def main(argv: list[str]) -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
             "ms_per_call", "plan_ms", "ms_by_kernel", "timed_by")},
     }]
+    def tier_timings(runs):
+        out = {r: tiers[r]["timing"] for r in runs}
+        if "dma_int8" in runs:
+            out["dma_bf16_table"] = tiers["dma_int8"]["timing_bf16_table"]
+        return out
+
     for name, runs, line in (
             ("fused_tick", ("fused",),
              "406 (_fused_kernel_factory; pallas_call :565)"),
@@ -2092,9 +2194,9 @@ def main(argv: list[str]) -> int:
             "bound_bytes": t["bound_bytes"], "bound_ops": t["bound_ops"],
             "floor_bytes": t["floor_bytes"], "floor_ms": t["floor_ms"],
             "config4_shape": tiers[runs[0]]["shape"],
-            "by_tier": {r: {k: tiers[r]["timing"][k] for k in (
+            "by_tier": {r: {k: tm[k] for k in (
                 "ms", "plain_ms", "composed_ms", "bound_ms", "bound_by")}
-                for r in runs},
+                for r, tm in tier_timings(runs).items()},
         })
     kernels.append({
         "name": "grad_w", "route": "cuda",
@@ -2120,6 +2222,11 @@ def main(argv: list[str]) -> int:
                           "Pe": snapshot.padded_edges,
                           "live_edges": bwd3["live_edges"]},
         "gms_dh_ms": bwd3["dh_ms"], "src_csr_ms": bwd3["src_csr_ms"],
+        "at_launch_shapes": {
+            "offline_train": {k: offline["grad_w"][k] for k in (
+                "ms_per_launch", "bound_ms", "launches")},
+            "config4_online_learner": {k: online["grad_w"][k] for k in (
+                "ms_per_launch", "bound_ms", "launches")}},
     })
     log(f"config 4: rules {eps:.1f} events/s, dispatch p50 {tick_ms:.3f} ms; "
         f"learned {learned4['events_per_s']:.1f} events/s, dispatch p50 "
@@ -2187,7 +2294,15 @@ def main(argv: list[str]) -> int:
             "forward_ms", "backward_ms", "optimizer_ms", "step_ms")},
         "config4_tick_ms": {
             "composed": tiers["fused"]["timing"]["composed_ms"],
-            **{t: r["timing"]["ms"] for t, r in tiers.items()}},
+            **{t: r["timing"]["ms"] for t, r in tiers.items()},
+            "dma_bf16_table": tiers["dma_int8"]["timing_bf16_table"]["ms"]},
+        "config4_tick_ms_by_kernel": {
+            **{t: r["timing"]["ms_by_kernel"] for t, r in tiers.items()},
+            "dma_bf16_table":
+                tiers["dma_int8"]["timing_bf16_table"]["ms_by_kernel"]},
+        "grad_w_at_launch_shapes": {
+            "offline_train": offline["grad_w"],
+            "config4_online_learner": online["grad_w"]},
         "config4_learned_events_per_s": {
             "composed": learned4["events_per_s"],
             **{t: r["events_per_s"] for t, r in tiers.items()}}}}))

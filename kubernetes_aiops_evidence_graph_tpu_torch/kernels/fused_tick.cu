@@ -25,22 +25,32 @@
 // at most 227 KB of shared memory and [N, H] at config 4 (N 65,536, H 64)
 // is 16.8 MB, so in BOTH entry points the activations live in device
 // memory, two [N, H] float32 buffers that fit the 50 MB L2 together:
-// layer li reads buffer li % 2 and writes its aggregate, then its output,
-// into the other. The tick is a chain of short kernels on the caller's
-// stream rather than one persistent kernel with a grid-wide barrier per
-// phase: every phase is a different parallel shape (one warp for the
-// ordered scatter, 64-row tiles for the products, one warp per eight
-// destinations for the ordered sums), and a kernel boundary is the
+// layer li reads buffer li % 2 and writes its output into the other. The
+// tick is a chain of short kernels on the caller's stream rather than one
+// persistent kernel with a grid-wide barrier per phase: every phase is a
+// different parallel shape (one warp for the ordered scatter, 64-row
+// tiles for the embed, runs of 64-edge tiles for the messages, blocks of
+// 16 destinations for the ordered sums), and a kernel boundary is the
 // barrier. The dst-CSR the ordered sums walk is built between the scatter
 // and the forward by the wrapper (kernels/gms.py make_plan, a stable sort
 // of the scattered edst), once per tick for all layers.
 //
+// Per layer, two kernels: the message pass's tile kernel writes msg, and
+// its segment walk (gms_device.cuh) sums each destination's rows and then,
+// in its epilogue, applies the update to the 16 destinations its block
+// holds (UpdateEpilogue below): the aggregate never goes to device memory
+// and back, and the update is not a launch of its own.
+//
 // What separates the entry points is what B4 adds to B3's contract: B3's
-// wrapper allocates the two activation buffers per call and blocks the
-// embed and update by 64-row tiles; B4 takes the caller's persistent h_a /
-// h_b (returned rewritten), node_block rows per block in the embed and
-// update, and a float32, bfloat16 or int8 (per-column scale) feature
-// table that the scatter updates and the embed dequantizes.
+// wrapper allocates the two activation buffers per call; B4 takes the
+// caller's persistent h_a / h_b (returned rewritten) and a float32,
+// bfloat16 or int8 (per-column scale) feature table that the scatter
+// updates and the embed dequantizes. B4's node_block is the JAX
+// schedule's window (node_block rows of HBM streamed through VMEM at a
+// time, on one core); the wrapper validates it as the JAX package does,
+// and it does not reach this file: a row's result does not depend on the
+// block that computes it, so both entry points run on the same grid and
+// B4 gives the same bits at every node block.
 //
 // Order and determinism. The scatter runs in ONE warp that walks each
 // delta in entry order, 32 entries at a time: equal indices within a
@@ -57,10 +67,9 @@
 // = 0.054 ms at 67 TFLOP/s; the bytes the tick must read and write once
 // are ~15 MB (0.005 ms). This version does float32 FMA from shared
 // memory (the message pass with w_rel held per run of tiles and its
-// gathers in flight by cp.async, gms_device.cuh), sends msg [E, H] to
-// device memory and back each layer, and blocks B4's embed and update by
-// node_block rows (32 blocks at 2048). Tensor cores, TMA pipelines and
-// fusing the segment walk are later work.
+// gathers in flight by cp.async, gms_device.cuh) and sends msg [E, H] to
+// device memory and back each layer; the per-tick dst-CSR is a torch sort.
+// Tensor cores, TMA pipelines and a hand-written CSR build are later work.
 //
 // Plain C interface for ctypes; each function returns the
 // cudaGetLastError() code after its launches (0 = success).
@@ -194,78 +203,227 @@ __global__ void inv_degree_kernel(const int* __restrict__ perm,
     inv_deg[d] = deg > 0.0f ? 1.0f / fmaxf(deg, 1.0f) : 0.0f;
 }
 
-// (c) h = relu(feat @ embed_w + embed_b + kind_emb[kind]) * nmask, for the
-// block's rows_per_block rows in 64-row tiles
+// (c) h = relu(feat @ embed_w + embed_b + kind_emb[kind]) * nmask, one
+// 64-row tile and 64 columns per block
 template <bool kBf16, typename Table>
 __global__ void __launch_bounds__(kThreads) embed_kernel(
     Table feat, int dim, int pn, int hid, const float* __restrict__ ew,
     const float* __restrict__ eb, const float* __restrict__ ke, int n_kinds,
     const int* __restrict__ kind, const float* __restrict__ nmask,
-    int rows_per_block, float* __restrict__ h) {
+    float* __restrict__ h) {
     __shared__ float a_s[kRowTile][kDepth + 1];
     __shared__ float w_s[kDepth][kColTile];
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
     const int c0 = blockIdx.y * kColTile;
-    const int b0 = blockIdx.x * rows_per_block;
-    const int b1 = min(b0 + rows_per_block, pn);
-    for (int r0 = b0; r0 < b1; r0 += kRowTile) {
-        const int nrows = min(kRowTile, b1 - r0);
-        float acc[4][4];
-        row_tile_product<kBf16>(feat, r0, nrows, dim, ew, hid, c0, acc, a_s,
-                                w_s);
+    const int r0 = blockIdx.x * kRowTile;
+    const int nrows = min(kRowTile, pn - r0);
+    float acc[4][4];
+    row_tile_product<kBf16>(feat, r0, nrows, dim, ew, hid, c0, acc, a_s, w_s);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int row = ty + 16 * i;
-            if (row >= nrows) continue;
-            const int r = r0 + row;
-            const int k = min(max(kind[r], 0), n_kinds - 1);
+    for (int i = 0; i < 4; ++i) {
+        const int row = ty + 16 * i;
+        if (row >= nrows) continue;
+        const int r = r0 + row;
+        const int k = min(max(kind[r], 0), n_kinds - 1);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int c = c0 + tx + 16 * j;
-                if (c >= hid) continue;
-                const float v = acc[i][j] + eb[c] + ke[(size_t)k * hid + c];
-                h[(size_t)r * hid + c] = relu(v) * nmask[r];
-            }
+        for (int j = 0; j < 4; ++j) {
+            const int c = c0 + tx + 16 * j;
+            if (c >= hid) continue;
+            const float v = acc[i][j] + eb[c] + ke[(size_t)k * hid + c];
+            h[(size_t)r * hid + c] = relu(v) * nmask[r];
         }
     }
 }
 
-// (d) the update, in place on nxt (which holds the aggregate):
-// nxt = relu(cur @ w_self + nxt * inv_deg + b) + cur
+// (d) the update, around the segment walk (gms_device.cuh's hooks): per
+// column pass the block's 16 destinations get
+//     out[d][c] = relu(cur[d] @ w_self[:, c] + agg[d][c] * inv_deg[d]
+//                      + b[c]) + cur[d][c]
+// in place of the aggregate agg. The product is one fmaf chain over
+// k = 0 .. hid - 1 from 0 with operands rounded per kBf16, then
+// (product + agg * inv_deg) + b, relu, + cur: the float operations of the
+// plain version's update, in its order. The product does not need agg,
+// so it is formed while the walk's first chunk is in flight: begin()
+// sends the first kD depths of w_self's column block (to the walk's
+// scratch) and of the 16 cur rows, the 16 inv_deg and the 64 b values (to
+// the epilogue's own shared memory) by cp.async; middle() forms the
+// product in the registers of the threads that will hold agg (thread
+// (col, lane): destinations lane + 4 i at column c0 + col, one w_self
+// value and a broadcast float4 of cur per four FMAs); end() adds agg, b
+// and the residual and writes out.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {   // all but the newest
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 template <bool kBf16>
-__global__ void __launch_bounds__(kThreads) update_kernel(
-    const float* __restrict__ cur, float* nxt,
-    const float* __restrict__ inv_deg, const float* __restrict__ ws,
-    const float* __restrict__ b, int pn, int hid, int rows_per_block) {
-    __shared__ float a_s[kRowTile][kDepth + 1];
-    __shared__ float w_s[kDepth][kColTile];
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    const int c0 = blockIdx.y * kColTile;
-    const int b0 = blockIdx.x * rows_per_block;
-    const int b1 = min(b0 + rows_per_block, pn);
-    for (int r0 = b0; r0 < b1; r0 += kRowTile) {
-        const int nrows = min(kRowTile, b1 - r0);
-        float acc[4][4];
-        row_tile_product<kBf16>(F32Table{cur}, r0, nrows, hid, ws, hid, c0,
-                                acc, a_s, w_s);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int row = ty + 16 * i;
-            if (row >= nrows) continue;
-            const int r = r0 + row;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int c = c0 + tx + 16 * j;
-                if (c >= hid) continue;
-                const size_t at = (size_t)r * hid + c;
-                // __fmul_rn: no contraction into an FMA, as in the
-                // reference's separate product and sum
-                const float v = acc[i][j] + __fmul_rn(nxt[at], inv_deg[r])
-                                + b[c];
-                nxt[at] = relu(v) + cur[at];
+struct UpdateEpilogue {
+    const float* cur;       // [n_seg, hid], the layer's input
+    const float* inv_deg;   // [n_seg]
+    const float* ws;        // [hid, k_out], w_self
+    const float* b;         // [k_out]
+    int hid;
+
+    static constexpr int kD = kSegRows;   // depths staged a step
+    static constexpr int kMinBlocks = 4;  // at most 64 registers a thread
+
+    struct State {
+        float p[kSegPer];                 // the product, as acc in the walk
+    };
+
+    // cur rows [16][kD] (a copy of the input, not rounded), inv_deg [16]
+    // and b [64] of the pass
+    __device__ static float* region() {
+        __shared__ __align__(16) float s[kSegDst * kD + kSegDst + kTileCols];
+        return s;
+    }
+
+    // depths k0 .. k0 + kD - 1 of w_self's column block into w_s [kD][64]
+    // and of the cur rows into region(): 16-byte cp.async pieces, or plain
+    // loads where rows are not whole pieces
+    __device__ void stage(const SegPass& p, int k0, float* w_s) const {
+        float* x_s = region();
+        const int depth = min(kD, hid - k0), tid = threadIdx.x;
+        const bool vec = ((reinterpret_cast<uintptr_t>(ws) |
+                           reinterpret_cast<uintptr_t>(cur)) & 15) == 0 &&
+                         (p.k_out & 3) == 0 && (hid & 3) == 0;
+        if (vec) {
+            for (int i = tid; i < kD * kTileCols / 4; i += kSegThreads) {
+                const int k = i / (kTileCols / 4), c = 4 * (i % (kTileCols / 4));
+                if (k < depth && c < p.cw)
+                    cp_async16(w_s + k * kTileCols + c,
+                               ws + (size_t)(k0 + k) * p.k_out + p.c0 + c);
+            }
+            for (int i = tid; i < kSegDst * kD / 4; i += kSegThreads) {
+                const int d = i / (kD / 4), k = 4 * (i % (kD / 4));
+                if (d < p.nd && k < depth)
+                    cp_async16(x_s + d * kD + k,
+                               cur + (size_t)(p.d0 + d) * hid + k0 + k);
+            }
+        } else {
+            for (int i = tid; i < kD * kTileCols; i += kSegThreads) {
+                const int k = i / kTileCols, c = i % kTileCols;
+                if (k < depth && c < p.cw)
+                    w_s[i] = ws[(size_t)(k0 + k) * p.k_out + p.c0 + c];
+            }
+            for (int i = tid; i < kSegDst * kD; i += kSegThreads) {
+                const int d = i / kD, k = i % kD;
+                if (d < p.nd && k < depth)
+                    x_s[d * kD + k] = cur[(size_t)(p.d0 + d) * hid + k0 + k];
             }
         }
     }
+
+    __device__ void begin(const SegPass& p, State&, float* w_s) const {
+        stage(p, 0, w_s);
+        float* x_s = region();
+        const int tid = threadIdx.x;
+        if (tid < p.nd)
+            cp_async4(x_s + kSegDst * kD + tid, inv_deg + p.d0 + tid);
+        if (tid < p.cw)
+            cp_async4(x_s + kSegDst * kD + kSegDst + tid, b + p.c0 + tid);
+        cp_async_commit();
+    }
+
+    __device__ void middle(const SegPass& p, State& st, float* w_s,
+                           bool walk_async) const {
+        const float* x_s = region();
+#pragma unroll
+        for (int i = 0; i < kSegPer; ++i) st.p[i] = 0.0f;
+        for (int k0 = 0; k0 < hid; k0 += kD) {
+            if (k0 > 0) {
+                stage(p, k0, w_s);
+                cp_async_commit();
+                cp_async_wait_all();
+            } else if (walk_async) {
+                cp_async_wait_one();   // ours; the walk's chunk flies on
+            } else {
+                cp_async_wait_all();
+            }
+            __syncthreads();
+            const int depth = min(kD, hid - k0);
+            const int quads = depth / 4;
+            for (int kq = 0; kq < quads; ++kq) {
+                float w[4];
+#pragma unroll
+                for (int t = 0; t < 4; ++t)
+                    w[t] = operand<kBf16>(w_s[(4 * kq + t) * kTileCols + p.col]);
+#pragma unroll
+                for (int i = 0; i < kSegPer; ++i) {
+                    const float4 x = *reinterpret_cast<const float4*>(
+                        x_s + (p.lane + i * kSegLanes) * kD + 4 * kq);
+                    st.p[i] = fmaf(operand<kBf16>(x.x), w[0], st.p[i]);
+                    st.p[i] = fmaf(operand<kBf16>(x.y), w[1], st.p[i]);
+                    st.p[i] = fmaf(operand<kBf16>(x.z), w[2], st.p[i]);
+                    st.p[i] = fmaf(operand<kBf16>(x.w), w[3], st.p[i]);
+                }
+            }
+            for (int k = 4 * quads; k < depth; ++k) {
+                const float w = operand<kBf16>(w_s[k * kTileCols + p.col]);
+#pragma unroll
+                for (int i = 0; i < kSegPer; ++i)
+                    st.p[i] = fmaf(
+                        operand<kBf16>(x_s[(p.lane + i * kSegLanes) * kD + k]),
+                        w, st.p[i]);
+            }
+            __syncthreads();   // w_s and the cur rows free again
+        }
+    }
+
+    __device__ void end(const SegPass& p, const State& st,
+                        const float (&agg)[kSegPer],
+                        float* __restrict__ out) const {
+        const float* x_s = region();
+        const float* inv_s = x_s + kSegDst * kD;
+        const float* b_s = inv_s + kSegDst;
+        // the cur rows region() holds: the last kD depths staged
+        const int k_last = (hid - 1) / kD * kD;
+        if (p.col < p.cw) {
+#pragma unroll
+            for (int i = 0; i < kSegPer; ++i) {
+                const int d = p.lane + i * kSegLanes;
+                if (d >= p.nd) continue;
+                const int r = p.d0 + d, c = p.c0 + p.col;
+                const float res = c >= k_last && c < k_last + kD
+                                      ? x_s[d * kD + c - k_last]
+                                      : cur[(size_t)r * hid + c];
+                // __fmul_rn: no contraction into an FMA, as in the
+                // reference's separate product and sum
+                const float v = st.p[i] + __fmul_rn(agg[i], inv_s[d]) +
+                                b_s[p.col];
+                out[(size_t)r * p.k_out + c] = relu(v) + res;
+            }
+        }
+        __syncthreads();       // region() read: free for the next pass
+    }
+
+    static cudaError_t launch(int blocks, cudaStream_t s, const float* msg,
+                              const int* perm, const int* rowptr, int n_seg,
+                              int k_out, float* out, const UpdateEpilogue& e);
+};
+
+// the walk of the tick's layers: its sums become the layer's output
+template <bool kBf16>
+__global__ void __launch_bounds__(kSegThreads, UpdateEpilogue<kBf16>::kMinBlocks)
+update_walk_kernel(const float* __restrict__ msg, const int* __restrict__ perm,
+                   const int* __restrict__ rowptr, int n_seg, int k_out,
+                   float* __restrict__ out, UpdateEpilogue<kBf16> epilogue) {
+    segment_walk(msg, perm, rowptr, n_seg, k_out, out, epilogue);
+}
+
+template <bool kBf16>
+cudaError_t UpdateEpilogue<kBf16>::launch(int blocks, cudaStream_t s,
+                                          const float* msg, const int* perm,
+                                          const int* rowptr, int n_seg,
+                                          int k_out, float* out,
+                                          const UpdateEpilogue& e) {
+    update_walk_kernel<kBf16><<<blocks, kSegThreads, 0, s>>>(
+        msg, perm, rowptr, n_seg, k_out, out, e);
+    return cudaGetLastError();
 }
 
 // (e) one warp per incident row: logits = h[inc] @ head_w + head_b, probs =
@@ -303,7 +461,6 @@ __global__ void readout_kernel(const float* __restrict__ h, int pn, int hid,
 
 struct Forward {
     int pn, dim, hid, classes, n_kinds, n_rel, n_layers, n_runs, pi;
-    int rows_per_block;
     const float* const* params;   // embed_w, embed_b, kind_emb, head_w, head_b
     const float* const* layers;   // per layer: w_self, w_rel, b
     const int* kind;
@@ -329,11 +486,11 @@ int run_forward(const Forward& f, Table feat, cudaStream_t s) {
     inv_degree_kernel<<<(f.pn + 255) / 256, 256, 0, s>>>(
         f.perm, f.rowptr, f.emask, f.pn, f.inv_deg);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const dim3 grid((f.pn + f.rows_per_block - 1) / f.rows_per_block,
+    const dim3 grid((f.pn + kRowTile - 1) / kRowTile,
                     (f.hid + kColTile - 1) / kColTile);
     embed_kernel<kBf16, Table><<<grid, kThreads, 0, s>>>(
         feat, f.dim, f.pn, f.hid, f.params[0], f.params[1], f.params[2],
-        f.n_kinds, f.kind, f.nmask, f.rows_per_block, f.h_a);
+        f.n_kinds, f.kind, f.nmask, f.h_a);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     for (int li = 0; li < f.n_layers; ++li) {
         const float* const* layer = f.layers + 3 * li;
@@ -341,12 +498,9 @@ int run_forward(const Forward& f, Table feat, cudaStream_t s) {
         float* nxt = li % 2 ? f.h_a : f.h_b;
         const int rc = gms_pass<float, kBf16>(
             cur, f.pn, f.hid, layer[1], f.hid, f.esrc, f.emask, f.runs,
-            f.n_runs, f.perm, f.rowptr, f.pn, f.msg, nxt, s);
+            f.n_runs, f.perm, f.rowptr, f.pn, f.msg, nxt, s,
+            UpdateEpilogue<kBf16>{cur, f.inv_deg, layer[0], layer[2], f.hid});
         if (rc != 0) return rc;
-        update_kernel<kBf16><<<grid, kThreads, 0, s>>>(
-            cur, nxt, f.inv_deg, layer[0], layer[2], f.pn, f.hid,
-            f.rows_per_block);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
     if (f.pi <= 0) return 0;
     readout_kernel<kBf16><<<f.pi, 32, 0, s>>>(
@@ -367,9 +521,9 @@ Forward make_forward(int pn, int dim, int hid, int classes, int n_kinds,
                      const void* emask, const void* runs, int n_runs,
                      const void* perm, const void* rowptr, const void* inc,
                      int pi, void* inv_deg, void* msg, void* h_a, void* h_b,
-                     void* logits, void* probs, int rows_per_block) {
+                     void* logits, void* probs) {
     return Forward{pn, dim, hid, classes, n_kinds, n_rel, n_layers, n_runs,
-                   pi, rows_per_block, (const float* const*)params,
+                   pi, (const float* const*)params,
                    (const float* const*)layers, (const int*)kind,
                    (const float*)nmask, (const int*)esrc, (const float*)emask,
                    (const int*)runs, (const int*)perm, (const int*)rowptr,
@@ -393,7 +547,7 @@ extern "C" int fused_tick_scatter(
     return (int)cudaGetLastError();
 }
 
-// B3 (b)-(e): float32 features, 64-row tiles, the wrapper's buffers
+// B3 (b)-(e): float32 features, the wrapper's buffers
 extern "C" int fused_gnn_tick(
     int bf16, const void* features, int pn, int dim, int hid, int classes,
     int n_kinds, int n_rel, const void* const* params,
@@ -405,25 +559,25 @@ extern "C" int fused_gnn_tick(
     const Forward f = make_forward(
         pn, dim, hid, classes, n_kinds, n_rel, params, layers, n_layers, kind,
         nmask, esrc, emask, runs, n_runs, perm, rowptr, inc, pi, inv_deg, msg,
-        h_a, h_b, logits, probs, kRowTile);
+        h_a, h_b, logits, probs);
     return dispatch(bf16, f, F32Table{(const float*)features},
                     (cudaStream_t)stream);
 }
 
 // B4 (b)-(e): feat_type 0 = float32, 1 = bfloat16, 2 = int8 (times
-// feat_scale per column); node_block rows per block; the caller's h_a/h_b
+// feat_scale per column); the caller's h_a/h_b
 extern "C" int fused_gnn_tick_dma(
     int bf16, int feat_type, const void* features, const void* feat_scale,
-    int node_block, int pn, int dim, int hid, int classes, int n_kinds,
-    int n_rel, const void* const* params, const void* const* layers,
-    int n_layers, const void* kind, const void* nmask, const void* esrc,
-    const void* emask, const void* runs, int n_runs, const void* perm,
-    const void* rowptr, const void* inc, int pi, void* inv_deg, void* msg,
-    void* h_a, void* h_b, void* logits, void* probs, void* stream) {
+    int pn, int dim, int hid, int classes, int n_kinds, int n_rel,
+    const void* const* params, const void* const* layers, int n_layers,
+    const void* kind, const void* nmask, const void* esrc, const void* emask,
+    const void* runs, int n_runs, const void* perm, const void* rowptr,
+    const void* inc, int pi, void* inv_deg, void* msg, void* h_a, void* h_b,
+    void* logits, void* probs, void* stream) {
     const Forward f = make_forward(
         pn, dim, hid, classes, n_kinds, n_rel, params, layers, n_layers, kind,
         nmask, esrc, emask, runs, n_runs, perm, rowptr, inc, pi, inv_deg, msg,
-        h_a, h_b, logits, probs, node_block);
+        h_a, h_b, logits, probs);
     cudaStream_t s = (cudaStream_t)stream;
     if (feat_type == 1)
         return dispatch(bf16, f,

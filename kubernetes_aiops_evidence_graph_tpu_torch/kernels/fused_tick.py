@@ -8,13 +8,15 @@ Two entry points, each with the contract of a JAX package kernel in
   mirrors in place, the forward, the verdict;
 * :func:`fused_gnn_tick_dma` — the streamed tick (``_dma_kernel_factory``,
   ``pallas_fused_gnn_tick_dma``): the same over the caller's persistent
-  activation buffers, with ``node_block`` rows per block and the f32 /
-  bf16 / int8 feature tables.
+  activation buffers, with the f32 / bf16 / int8 feature tables.
 
 On CUDA tensors each launches ``fused_tick.cu`` on the current stream: the
 scatter, then the layout's dst-CSR (:func:`kernels.gms.make_plan`, a stable
-sort of the scattered ``edst``), then degree, embed, L message passes and
-updates, and the readout. On CPU tensors each runs its plain version,
+sort of the scattered ``edst``), then degree, embed, L message passes (the
+tile kernel, then the segment walk, which applies the layer's update in
+its epilogue), and the readout. Both entry points run the same kernels on
+the same grid, so on the same state the streamed tick's float32 result
+equals the fused tick's bit for bit. On CPU tensors each runs its plain version,
 ``ops/fused_tick``, which the tests hold against the JAX package and
 ``chip_smoke.py`` holds the kernels against on the card. There is no
 fallback from one to the other.
@@ -55,7 +57,6 @@ dma_launches = 0
 
 _lib: ctypes.CDLL | None = None
 _FEAT_TYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_ROW_TILE = 64    # the fused tick's rows per block (fused_tick.cu kRowTile)
 
 
 def _library() -> ctypes.CDLL:
@@ -77,7 +78,7 @@ def _library() -> ctypes.CDLL:
             p, p, p, p, p, p, p]            # inv_deg, msg, h_a, h_b, logits,
         #                                     probs, stream
         lib.fused_gnn_tick.argtypes = [i, p] + forward
-        lib.fused_gnn_tick_dma.argtypes = [i, i, p, p, i] + forward
+        lib.fused_gnn_tick_dma.argtypes = [i, i, p, p] + forward
         for fn in (lib.fused_tick_scatter, lib.fused_gnn_tick,
                    lib.fused_gnn_tick_dma):
             fn.restype = ctypes.c_int
@@ -119,7 +120,7 @@ def _raise(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def _launch(params, features, mirrors, ints, h_a, h_b, pk, ek, pi, offs,
-            compute_dtype, node_block, fq_rows, feat_scale, dma: bool):
+            compute_dtype, fq_rows, feat_scale, dma: bool):
     """Check the operands, then launch the scatter, build the dst-CSR and
     launch the forward, all on the current stream. Returns (logits, probs)."""
     kind, nmask, esrc, edst, erel, emask = mirrors
@@ -190,7 +191,7 @@ def _launch(params, features, mirrors, ints, h_a, h_b, pk, ek, pi, offs,
         if dma:
             rc = lib.fused_gnn_tick_dma(bf16, _FEAT_TYPE[features.dtype],
                                         _ptr(features), _ptr(feat_scale),
-                                        node_block, *forward)
+                                        *forward)
         else:
             rc = lib.fused_gnn_tick(bf16, _ptr(features), *forward)
         _raise(lib, rc, "forward")
@@ -209,7 +210,7 @@ def _fused_forward(params, features, mirrors, ints, pk, ek, pi, offs,
     h = [torch.empty((features.shape[0], hid), dtype=torch.float32,
                      device=features.device) for _ in range(2)]
     return _launch(params, features, mirrors, ints, *h, pk, ek, pi, offs,
-                   compute_dtype, _ROW_TILE, None, None, dma=False)
+                   compute_dtype, None, None, dma=False)
 
 
 def _wants_grad(*tensors) -> bool:
@@ -340,8 +341,10 @@ def fused_gnn_tick_dma(params, features, kind, nmask, esrc, edst, erel,
     h_b)`` (+ the quant table under a quant tier). ``h_a``/``h_b`` are the
     caller's two ``[Pn, H]`` float32 activation buffers, rewritten in place
     (the embed writes ``h_a``, layer ``l`` writes buffer ``(l+1) % 2``).
-    ``node_block`` (clamped to Pn, which it must divide) is the rows per
-    block of the embed and the update. With ``feat_quant`` ("bfloat16" or
+    ``node_block`` is the JAX schedule's window (the rows it streams
+    through VMEM at a time), validated as there: clamped to Pn, which it
+    must divide. It does not change the card's grid, which is the fused
+    tick's, nor any bit of the result. With ``feat_quant`` ("bfloat16" or
     "int8"), ``features`` is the quantized table: the scatter writes the
     aux delta's ``fq_rows`` into it in place and the embed dequantizes it
     (int8 times ``feat_scale`` per column).
@@ -369,7 +372,7 @@ def fused_gnn_tick_dma(params, features, kind, nmask, esrc, edst, erel,
     _check("features", features, want, tuple(features.shape), features.device)
     mirrors = (kind, nmask, esrc, edst, erel, emask)
     logits, probs = _launch(params, features, mirrors, ints, h_a, h_b, pk,
-                            ek, pi, offs, compute_dtype, nb,
+                            ek, pi, offs, compute_dtype,
                             fq_rows if feat_quant else None,
                             feat_scale if feat_quant == "int8" else None,
                             dma=True)

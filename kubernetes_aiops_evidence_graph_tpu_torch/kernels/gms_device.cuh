@@ -1,7 +1,7 @@
 // gms_device.cuh — the device code of the relation-bucketed message pass,
 // shared by gms.cu (the message pass on its own) and fused_tick.cu (the
-// fused serving tick, which runs it once per layer); grad_w.cu takes its
-// operand helpers. See gms.cu for the design: a tile kernel writes each
+// fused serving tick, which runs it once per layer with the layer's update
+// around its walk); grad_w.cu takes its operand helpers. See gms.cu for the design: a tile kernel writes each
 // live edge's message row, walking runs of one relation's tiles with
 // w_rel[r] held in shared memory and the next gather in flight (cp.async);
 // then a walk adds each destination's rows in ascending edge index over a
@@ -344,21 +344,71 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks) gms_tile_kernel(
     }
 }
 
-// One block per kSegDst consecutive destinations d0 .. d0 + 15. Their
-// CSR entries perm[rowptr[d0]] .. perm[rowptr[d0 + 16] - 1] are staged in
-// chunks of kSegRows message rows: cp.async brings the next chunk's rows
-// into shared memory (16-byte pieces, the whole chunk in flight at once)
-// while the block adds the current one. Thread (column c, lane l) holds
+// What the walk does besides its sums, per column pass: the pass's c0 and
+// cw columns, the block's nd destinations from d0, and the thread's
+// column col and lane. Every thread of the block calls each hook, with
+// the pass's `state` (registers of the thread's own):
+//   begin(pass, state, scratch)          before the walk stages its first
+//       chunk; may issue loads of its own (one cp.async group);
+//   middle(pass, state, scratch, walk_async)   once the walk's first chunk
+//       is in flight (walk_async: as one cp.async group committed after
+//       begin's); may wait for begin's loads and compute;
+//   end(pass, state, acc, out)           after the last chunk is added and
+//       a __syncthreads(): acc[i] is the sum of destination
+//       d0 + lane + kSegLanes i at column c0 + col.
+// `scratch`, the walk's second staging buffer (kSegRows x 64 floats), is
+// the hooks' from begin() until middle() returns, which must end in a
+// __syncthreads(). PlainStore, the walk of gms.cu (the message pass on
+// its own), only stores the sums to out [n_seg, k_out]; fused_tick.cu's
+// UpdateEpilogue forms each layer's update around the walk and writes
+// that instead. Each epilogue launches its own kernel around
+// segment_walk (launch()), with its own launch bounds.
+constexpr int kSegLanes = kSegThreads / kTileCols;          // 4
+
+struct SegPass {
+    int d0, nd, c0, cw, col, lane, k_out;
+};
+
+struct PlainStore {
+    struct State {};
+    __device__ __forceinline__ void begin(const SegPass&, State&,
+                                          float*) const {}
+    __device__ __forceinline__ void middle(const SegPass&, State&, float*,
+                                           bool) const {}
+    __device__ __forceinline__ void end(const SegPass& p, const State&,
+                                        const float (&acc)[kSegPer],
+                                        float* __restrict__ out) const {
+        if (p.col < p.cw) {
+#pragma unroll
+            for (int i = 0; i < kSegPer; ++i) {
+                const int d = p.lane + i * kSegLanes;
+                if (d < p.nd)
+                    out[(size_t)(p.d0 + d) * p.k_out + p.c0 + p.col] = acc[i];
+            }
+        }
+    }
+    static cudaError_t launch(int blocks, cudaStream_t s, const float* msg,
+                              const int* perm, const int* rowptr, int n_seg,
+                              int k_out, float* out, const PlainStore&);
+};
+
+// The walk of block blockIdx.x: its kSegDst consecutive destinations
+// d0 .. d0 + 15. Their CSR entries perm[rowptr[d0]] ..
+// perm[rowptr[d0 + 16] - 1] are staged in chunks of kSegRows message
+// rows: cp.async brings the next chunk's rows into shared memory (16-byte
+// pieces, the whole chunk in flight at once) while the block adds the
+// current one. Thread (column c, lane l) holds
 // the sums of destinations l, l + 4, ... in registers: each starts at 0
 // and adds that destination's rows in ascending edge index, chunk after
 // chunk. So out[d] = sum of msg[perm[j]] over j in [rowptr[d],
 // rowptr[d+1]), in that order; a destination without entries gets 0. A
 // hub's rows arrive as fast as anyone's; only its adds stay in series,
-// from shared memory.
-__global__ void __launch_bounds__(kSegThreads) gms_segment_kernel(
+// from shared memory. The epilogue's hooks frame each column pass.
+template <typename Epilogue>
+__device__ __forceinline__ void segment_walk(
     const float* __restrict__ msg, const int* __restrict__ perm,
     const int* __restrict__ rowptr, int n_seg, int k_out,
-    float* __restrict__ out) {
+    float* __restrict__ out, const Epilogue& epilogue) {
     __shared__ __align__(16) float rows_s[2][kSegRows][kTileCols];
     __shared__ int rp_s[kSegDst + 1];
     const int tid = threadIdx.x;
@@ -406,6 +456,9 @@ __global__ void __launch_bounds__(kSegThreads) gms_segment_kernel(
                                  : 0;
             }
         };
+        const SegPass pass{d0, nd, c0, cw, col, lane, k_out};
+        typename Epilogue::State state;
+        epilogue.begin(pass, state, &rows_s[1][0][0]);
         float acc[kSegPer];
 #pragma unroll
         for (int i = 0; i < kSegPer; ++i) acc[i] = 0.0f;
@@ -414,6 +467,8 @@ __global__ void __launch_bounds__(kSegThreads) gms_segment_kernel(
             rows_of(j_begin, rows);
             stage(j_begin, 0, rows);
         }
+        epilogue.middle(pass, state, &rows_s[1][0][0],
+                        vec && j_begin < j_end);
         for (int j = j_begin, b = 0; j < j_end; j += kSegRows, b ^= 1) {
             const bool more = j + kSegRows < j_end;
             if (more) rows_of(j + kSegRows, rows);
@@ -424,7 +479,7 @@ __global__ void __launch_bounds__(kSegThreads) gms_segment_kernel(
             if (col < cw) {
 #pragma unroll
                 for (int i = 0; i < kSegPer; ++i) {
-                    const int d = lane + i * (kSegThreads / kTileCols);
+                    const int d = lane + i * kSegLanes;
                     if (d >= nd) break;
                     const int lo = max(rp_s[d], j), hi = min(rp_s[d + 1], jn);
                     for (int r = lo; r < hi; ++r)
@@ -433,24 +488,36 @@ __global__ void __launch_bounds__(kSegThreads) gms_segment_kernel(
             }
         }
         __syncthreads();       // the last chunk is added before the next pass
-        if (col < cw) {
-#pragma unroll
-            for (int i = 0; i < kSegPer; ++i) {
-                const int d = lane + i * (kSegThreads / kTileCols);
-                if (d < nd) out[(size_t)(d0 + d) * k_out + c0 + col] = acc[i];
-            }
-        }
+        epilogue.end(pass, state, acc, out);
     }
 }
 
-// the tile kernel then the segment walk, on stream s; returns the
-// cudaGetLastError() code after the launches (cudaErrorInvalidValue for
-// hid > kMaxHid)
-template <typename T, bool kBf16>
+// the walk that stores its sums: the message pass's own
+__global__ void __launch_bounds__(kSegThreads) gms_segment_kernel(
+    const float* __restrict__ msg, const int* __restrict__ perm,
+    const int* __restrict__ rowptr, int n_seg, int k_out,
+    float* __restrict__ out) {
+    segment_walk(msg, perm, rowptr, n_seg, k_out, out, PlainStore{});
+}
+
+inline cudaError_t PlainStore::launch(int blocks, cudaStream_t s,
+                                      const float* msg, const int* perm,
+                                      const int* rowptr, int n_seg,
+                                      int k_out, float* out,
+                                      const PlainStore&) {
+    gms_segment_kernel<<<blocks, kSegThreads, 0, s>>>(msg, perm, rowptr,
+                                                     n_seg, k_out, out);
+    return cudaGetLastError();
+}
+
+// the tile kernel then the segment walk (`epilogue`'s kernel), on stream
+// s; returns the cudaGetLastError() code after the launches
+// (cudaErrorInvalidValue for hid > kMaxHid)
+template <typename T, bool kBf16, typename Epilogue = PlainStore>
 int gms_pass(const T* h, int n_h, int hid, const T* w_rel, int k_out,
              const int* src, const T* mask, const int* runs, int n_runs,
              const int* perm, const int* rowptr, int n_seg, float* msg,
-             float* out, cudaStream_t s) {
+             float* out, cudaStream_t s, Epilogue epilogue = Epilogue{}) {
     if (hid > kMaxHid) return (int)cudaErrorInvalidValue;
     if (n_runs > 0 && k_out > 0) {
         const size_t bytes = gms_tile_smem<T>(hid);
@@ -467,8 +534,9 @@ int gms_pass(const T* h, int n_h, int hid, const T* w_rel, int k_out,
         if (err != cudaSuccess) return (int)err;
     }
     if (n_seg > 0 && k_out > 0)
-        gms_segment_kernel<<<(n_seg + kSegDst - 1) / kSegDst, kSegThreads, 0,
-                             s>>>(msg, perm, rowptr, n_seg, k_out, out);
+        return (int)Epilogue::launch((n_seg + kSegDst - 1) / kSegDst, s, msg,
+                                     perm, rowptr, n_seg, k_out, out,
+                                     epilogue);
     return (int)cudaGetLastError();
 }
 

@@ -22,7 +22,8 @@ from kubernetes_aiops_evidence_graph_tpu_torch.ops.fused_tick import (
     dma_tick_traffic_floor, fused_gnn_tick_dma_plain, fused_gnn_tick_plain,
     quantize_features)
 from tests.test_torch_fused_tick_cuda import (
-    MIRRORS, quant_rows, tick_operands, torch_operands)
+    HARD_TICKS, MIRRORS, hard_tick_operands, quant_rows, tick_operands,
+    torch_operands)
 
 # one intra-op thread: these tensors are small, and the suite runs
 # several pytest workers side by side on the host's cores
@@ -121,6 +122,21 @@ def test_fused_plain_equals_jax_fused_kernel(case):
     if case == "empty_delta":
         for a, b in zip(mine[:6], ops[2]):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("cdt", [None, "bfloat16"])
+@pytest.mark.parametrize("name", sorted(HARD_TICKS))
+def test_fused_plain_equals_jax_fused_kernel_on_hard_layouts(name, cdt):
+    """The layouts the card's update epilogue is held to (a hub of 600
+    edges, rows of in-degree 0, Pn 1000, H 40 / 128 / 72 / 30 with feature
+    widths 24 / 48 / 16 / 10): the plain fused tick against the JAX package's
+    kernel in interpret mode, mirrors exactly, logits and probs within
+    rtol/atol 1e-5 (bf16 operands 0.05) with the same argmax."""
+    ops = hard_tick_operands(name)
+    mine = _port_tick(ops, "fused", compute_dtype=cdt)
+    ref = _jax_tick(("fused", "hard", name, cdt), ops, "fused",
+                    compute_dtype=cdt)
+    _assert_tick(mine, ref, tol=0.05 if cdt else 1e-5, what=name)
 
 
 def test_fused_plain_bf16_operands_equal_jax_fused_kernel():
