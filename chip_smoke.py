@@ -6,7 +6,7 @@
 (``--package-dir`` drives the port's package of another tree, for example
 an unpacked parent commit, with this script's phases: two trees compared
 on one card, one run after the other. ``--state-dir`` makes those runs
-hash the config-4 ticks' logits on the same saved state.)
+hash the digested kernels' outputs on the same saved inputs.)
 
 Drives ``kubernetes_aiops_evidence_graph_tpu_torch`` on the card, both RCA
 paths: the rules path (``rca_backend="tpu"``, kernel ``rules_fold``) and
@@ -22,7 +22,11 @@ the learned model's training, offline (``rca/train.py``) and online
    source, started together);
 3. holds ``rules_fold`` against its plain PyTorch version on the card,
    with exact equality of every output, at edge shapes (W > 256, pair
-   width > 64, empty rows, an 8-row batch of threshold edges);
+   width > 64, empty rows, an 8-row batch of threshold edges) and on the
+   fold's edge rows at W 16, 64 and 512 (``fold_edge_rows``: ev_cnt 0, W,
+   past W and negative; invalid ids between live slots; pair ids outside
+   the width; NaN features; a negative and a NaN chain), two launches
+   equal;
 4. config 3, rules: builds a 35,000-pod cluster with 500 concurrent
    incidents (seed 0), scores it with ``CudaRcaBackend.score_snapshot``
    and materializes ``results()``; the kernel must have launched, the
@@ -104,10 +108,15 @@ the learned model's training, offline (``rca/train.py``) and online
    kernel at config 3, forward and dh, and config 4; the hub probe; the
    learned forward, the train step, the ticks per tier, each split by
    kernel, and learned events/s; ``grad_w`` per launch at the trainer's
-   and the learner's batches), a ``{"digests": {...}}`` line (sha256 of the output bytes of
-   ``gms`` at config 3, f32 and bf16 operands, of the backward's dh and dw
-   there, and of the fused and streamed ticks' logits on config 4's
-   resident state after the churn), one ``{"kernels": [...]}`` line with
+   and the learner's batches, split by ``grad_w.KERNEL_NAMES``; B1 at
+   config 3 and 4 split by kernel), a ``{"digests": {...}}`` line (sha256
+   of the output bytes of ``gms`` at config 3, f32 and bf16 operands, of
+   the backward's dh and dw there, of the fused and streamed ticks' logits
+   on config 4's resident state after the churn, of ``grad_w``'s dw on the
+   offline trainer's first batch and on the online learner's config-4
+   episode, and of ``rules_fold``'s seven outputs at config 3 and on the
+   config-4 rules run's resident state, each with its inputs' digest;
+   ``--state-dir`` keeps those inputs too), one ``{"kernels": [...]}`` line with
    each kernel's launches on the main paths, its time, the plain
    version's time and its bound, then the nvidia-smi line, then
    ``{"ok": true, "device": {...}}`` last.
@@ -230,6 +239,55 @@ def edge_batch(dev):
     return tuple(torch.from_numpy(a).to(dev) for a in arrays), pair_width
 
 
+def fold_edge_rows(seed: int, pn: int, pi: int, width: int, pair_width: int,
+                   dev):
+    """Rows at the fold's edges, as (kernel inputs, plain inputs), also
+    used by tests/test_torch_rules_fold.py: rows with ev_cnt 0, == W, past
+    W and negative; invalid ids (-1, Pn, 2**30) between live slots and
+    past ev_cnt; pair ids outside [0, pair_width); NaN features outside the
+    POD_PROBLEM column (the plain version's one-hot contraction multiplies
+    every slot's problem value by 0 for every bin, so a NaN there would
+    reach every bin, where the kernel adds it to its own bin only); a
+    negative and a NaN chain. The plain version indexes features with every
+    slot, so it gets the same rows with the invalid live slots taken out
+    (integer-valued features: the sums are exact in any order)."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph.schema import DIM, F
+    rng = np.random.default_rng(seed)
+    features, ev_idx, ev_cnt, ev_pair, chain = (
+        t.numpy() for t in random_batch(rng, pn, pi, width, pair_width,
+                                        "cpu"))
+    ev_cnt[:4] = (0, width, width + 3, -2)
+    ev_cnt[4:] = np.maximum(ev_cnt[4:], width // 2)
+    nan_cols = [c for c in range(DIM) if c != F.POD_PROBLEM]
+    features[rng.choice(pn, 6, replace=False), rng.choice(nan_cols, 6)] = \
+        np.nan
+    ev_pair[:, 1::5] = pair_width + 3
+    ev_pair[:, 2::7] = -1
+    chain[4], chain[5], chain[6] = -2.0, np.nan, -0.5
+    live = np.clip(ev_cnt, 0, width)
+    bad = (-1, pn, 2 ** 30)
+    for i in range(1, pi, 2):
+        if live[i] > 2:
+            ws = rng.choice(np.arange(1, live[i] - 1), min(3, live[i] - 2),
+                            replace=False)
+            ev_idx[i, ws] = [bad[k % 3] for k in range(len(ws))]
+        ev_idx[i, live[i]:] = -7                # past ev_cnt: never read
+    plain_idx = np.zeros_like(ev_idx)
+    plain_pair = np.full_like(ev_pair, pair_width)
+    plain_cnt = np.zeros_like(ev_cnt)
+    for i in range(pi):
+        keep = [w for w in range(live[i]) if 0 <= ev_idx[i, w] < pn]
+        plain_idx[i, :len(keep)] = ev_idx[i, keep]
+        plain_pair[i, :len(keep)] = ev_pair[i, keep]
+        plain_cnt[i] = len(keep)
+    plain_cnt[2:4] = ev_cnt[2:4]                # nothing taken out there
+    to = lambda arrays: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                              for a in arrays)
+    return (to((features, ev_idx, ev_cnt, ev_pair, chain)),
+            to((features, plain_idx, plain_cnt, plain_pair, chain)))
+
+
 def build_world(num_pods: int, num_incidents: int, seed: int = 0):
     """The config-3 world of the JAX package's benchmark, through the port."""
     from kubernetes_aiops_evidence_graph_tpu_torch.collectors import (
@@ -298,9 +356,11 @@ def kernel_split(fn, iters: int = 20) -> dict:
 
 DIGESTS: dict[str, str] = {}
 """sha256 of the output bytes of the kernels whose bits this tree must
-keep (gms, its backward's dh, the fused and streamed ticks' logits, and
-those ticks' inputs), printed on the ``digests`` line: two trees that
-compute the same bits print the same digests on the same card."""
+keep (gms, its backward's dh and dw, the fused and streamed ticks' logits,
+grad_w's dw on two training batches, rules_fold's outputs at config 3 and
+4, and the inputs of those saved under ``--state-dir``), printed on the
+``digests`` line: two trees that compute the same bits print the same
+digests on the same card."""
 
 
 def digest(name: str, *tensors) -> str:
@@ -313,10 +373,11 @@ def digest(name: str, *tensors) -> str:
 
 
 STATE_DIR: "str | None" = None
-"""``--state-dir``: where the config-4 tick states whose logits the
-``digests`` line hashes are kept, so that runs of two trees hash the
-same inputs (the churned state itself differs from process to process:
-the simulator names new objects at random)."""
+"""``--state-dir``: where the inputs that the ``digests`` line hashes are
+kept (the config-4 tick states, the rules passes' inputs, the training
+batches' layouts), so that runs of two trees hash the same inputs (worlds
+and churn differ from process to process: the simulator names new objects
+at random)."""
 
 
 def shared_state(state: dict, name: str) -> dict:
@@ -363,12 +424,34 @@ def kernel_timing(args, pair_width: int) -> dict:
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
     t = timed(lambda: rf.rules_fold(*args, pair_width),
               lambda: rf.rules_fold_reference(*args, pair_width))
+    t["ms_by_kernel"] = kernel_split(lambda: rf.rules_fold(*args, pair_width))
+    if "rules_fold_kernel" not in t["ms_by_kernel"]:
+        raise AssertionError(f"rules_fold: the profiler saw no "
+                             f"rules_fold_kernel ({t['ms_by_kernel']})")
     ev_idx, ev_cnt = args[1].cpu().numpy(), args[2].cpu().numpy()
     # one add per gathered value, and one per live slot into the histogram
     live = int(np.minimum(ev_cnt, ev_idx.shape[1]).clip(0).sum())
     t.update(bound_of(rf.bound_bytes(ev_idx, ev_cnt),
                       live * (args[0].shape[1] + 1)))
     return t
+
+
+def rules_digests(name: str, args, pair_width: int) -> None:
+    """The ``digests`` line's B1 entries: the seven outputs of one pass on
+    these inputs and the inputs' own digest. With ``--state-dir`` every
+    run hashes the inputs the first run saved there (world and churn name
+    objects at random, so two processes build different rows)."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
+    dev = args[0].device
+    state = shared_state({"args": [a.cpu() for a in args],
+                          "pair_width": pair_width}, f"{name}_rules")
+    d_args = [a.to(dev) for a in state["args"]]
+    with kept_counts():
+        out = rf.rules_fold(*d_args, state["pair_width"])
+        torch.cuda.synchronize()
+    digest(f"{name}_rules_fold_outputs", *out)
+    digest(f"{name}_rules_fold_inputs", *d_args)
 
 
 # -- gms: the learned path's message pass -----------------------------------
@@ -875,6 +958,7 @@ def run_streaming(num_pods: int = 10_000, num_incidents: int = 100,
     shape = {"Pn": int(args[0].shape[0]), "Pi": int(args[1].shape[0]),
              "W": scorer.width, "Wr": scorer.pair_width,
              "live_slots": int(args[2].sum())}
+    rules_digests("config4", args, scorer.pair_width)
     timing = kernel_timing(args, scorer.pair_width)
     log(f"config 4 timing: {timing}")
     return (eps, tick_ms, launches, ticks, shape, timing,
@@ -1474,6 +1558,10 @@ def gms_backward_config3(args: tuple, offs, n: int) -> dict:
                   lambda: gms_grad_w(h, ct, src, dst, mask, offs, nr))
         t["ms_by_kernel"] = kernel_split(
             lambda: grad_w.gms_grad_w(h, ct, src, dst, mask, offs, nr))
+        if not set(grad_w_kernel_names(grad_w)) & set(t["ms_by_kernel"]):
+            raise AssertionError(f"grad_w at config 3: the profiler split "
+                                 f"{sorted(t['ms_by_kernel'])} names none "
+                                 f"of {grad_w_kernel_names(grad_w)}")
         t["composition_ms"] = device_ms(lambda: torch_grad_w_composition(
             h, ct, src, dst, mask, offs, nr))
         t["dh_ms"] = device_ms(lambda: gms._launch(
@@ -1669,18 +1757,55 @@ def recorded_steps(module, factory: str, batch_arg: int):
         setattr(module, factory, made)
 
 
-B5_KERNELS = ("grad_w_partial_kernel", "grad_w_reduce_kernel")
+def grad_w_kernel_names(grad_w) -> tuple:
+    """The function names of B5's kernels, ``grad_w.KERNEL_NAMES``; a tree
+    from before that name (driven with ``--package-dir``) launched these
+    two."""
+    return getattr(grad_w, "KERNEL_NAMES",
+                   ("grad_w_partial_kernel", "grad_w_reduce_kernel"))
 
 
-def grad_w_at_steps(entries: dict, make, batch_arg: int, params) -> dict:
+def grad_w_digest(name: str, batch: dict, offs, hid: int, num_rels: int,
+                  dev) -> None:
+    """The ``digests`` line's B5 entries on a batch a training run stepped
+    on: ``dw`` of one weight gradient on that batch's layout, with ``h``
+    and ``g`` drawn from a fixed seed at its node count, and the inputs'
+    digest. With ``--state-dir`` every run uses the layout the first run
+    saved there."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import grad_w
+    state = shared_state({
+        "layout": [torch.as_tensor(batch[k]).cpu() for k in (
+            "edge_src", "edge_dst", "edge_mask")],
+        "offs": tuple(int(o) for o in offs),
+        "n": int(batch["features"].shape[0])}, f"{name}_grad_w")
+    rng = np.random.default_rng(21)
+    n = state["n"]
+    h, g = (torch.from_numpy(rng.standard_normal((n, hid)).astype(
+        np.float32) / n).to(dev) for _ in range(2))
+    src, dst, mask = (t.to(dev, dt) for t, dt in zip(
+        state["layout"], (torch.int32, torch.int32, torch.float32)))
+    with kept_counts():
+        dw = grad_w.gms_grad_w(h, g, src, dst, mask, state["offs"], num_rels)
+        torch.cuda.synchronize()
+    digest(f"{name}_grad_w_dw", dw)
+    digest(f"{name}_grad_w_inputs", h, g, src, dst, mask,
+           torch.tensor(state["offs"]))
+
+
+def grad_w_at_steps(entries: dict, make, batch_arg: int, params,
+                    name: str) -> dict:
     """B5 where its launches are: for each distinct batch a training run
     stepped on, one step from ``params`` split by kernel (profiler), B5's
-    device time per launch there (its two kernels over its launches in
-    the step) and B5's bound on that batch's layout; the run's mean per
-    launch, weighted by the steps taken on each batch."""
+    device time per launch there (its kernels, ``grad_w.KERNEL_NAMES``,
+    over its launches in the step; raises when the split names none of
+    them) and B5's bound on that batch's layout; the run's mean per
+    launch, weighted by the steps taken on each batch. The first batch's
+    ``dw`` goes to the ``digests`` line under ``name``."""
     import torch
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import grad_w
     from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    names = grad_w_kernel_names(grad_w)
     step = make()
     rows = []
     with kept_counts():
@@ -1694,16 +1819,22 @@ def grad_w_at_steps(entries: dict, make, batch_arg: int, params) -> dict:
             torch.cuda.synchronize()
             per_step = grad_w.launches - before
             split = kernel_split(lambda: step(p, opt, *rest, **kw), iters=10)
+            if not any(k in split for k in names):
+                raise AssertionError(f"grad_w: the profiler split of a step "
+                                     f"names none of {names}: {sorted(split)}")
             offs = tuple(kw["rel_offsets"])
             hid = int(params["embed_b"].shape[0])
             nr = int(params["layers"][0]["w_rel"].shape[0])
+            if not rows:
+                grad_w_digest(name, b, offs, hid, nr,
+                              params["embed_b"].device)
             nbytes, ops = grad_w.bound(*(b[k].cpu().numpy() for k in (
                 "edge_src", "edge_dst", "edge_mask")), offs, hid, hid, nr)
             rows.append({
                 "pn": int(b["features"].shape[0]), "pe": offs[-1],
                 "live_edges": ops // (2 * hid * hid), "steps": e["steps"],
                 "launches_per_step": per_step,
-                "ms_per_launch": sum(split.get(k, 0.0) for k in B5_KERNELS)
+                "ms_per_launch": sum(split.get(k, 0.0) for k in names)
                 / max(per_step, 1),
                 "step_ms": sum(split.values()),
                 "step_ms_by_kernel": dict(sorted(
@@ -1757,7 +1888,8 @@ def run_offline_train(dev) -> dict:
            "train_accuracy": out["metrics"]["train_accuracy"],
            "first_loss": hist[0]["loss"], "final_loss": hist[-1]["loss"],
            **out["timing"],
-           "grad_w": grad_w_at_steps(entries, make, 2, out["params"])}
+           "grad_w": grad_w_at_steps(entries, make, 2, out["params"],
+                                     "offline_train")}
     log(f"offline train on the card: {res}")
     return res
 
@@ -1898,7 +2030,8 @@ def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
            "swapped": out["swapped"], "launches": counts,
            "cycle_s": cycle_s, "finetune_s": tune_s[0],
            "finetune_ms_per_step": tune_s[0] / steps * 1e3,
-           "grad_w": grad_w_at_steps(entries, make, 4, candidates[0])}
+           "grad_w": grad_w_at_steps(entries, make, 4, candidates[0],
+                                     "config4_learner")}
     if out["swapped"]:
         served = scorer.rescore()
         if served["params_generation"] != 1 or out["generation"] != 1:
@@ -1935,9 +2068,9 @@ def main(argv: list[str]) -> int:
         os.path.abspath(__file__)), help="directory holding the port's "
         "package to drive (default: this script's); another tree's, to "
         "compare two trees on one card with the same phases")
-    ap.add_argument("--state-dir", help="keep the config-4 tick states "
-                    "that the digests hash here (inside the checkout): the "
-                    "first run saves them, later runs load them")
+    ap.add_argument("--state-dir", help="keep the inputs that the digests "
+                    "hash here (inside the checkout): the first run saves "
+                    "them, later runs load them")
     opts = ap.parse_args(argv)
     global STATE_DIR
     STATE_DIR = opts.state_dir
@@ -1993,6 +2126,20 @@ def main(argv: list[str]) -> int:
         max_err = max(max_err, assert_equal_outputs(
             got, rf.rules_fold_reference(*args, pw), what))
         log(f"kernel == plain: {what} (Pn={pn} Pi={pi} W={width} Wr={pw})")
+    for width in (16, 64, 512):
+        for pw in (4, 16, 128):
+            k_args, p_args = fold_edge_rows(width + pw, 512, 32, width, pw,
+                                            dev)
+            got = rf.rules_fold(*k_args, pw)
+            again = rf.rules_fold(*k_args, pw)
+            torch.cuda.synchronize()
+            what = f"fold edge rows W={width} Wr={pw}"
+            want = rf.rules_fold_reference(*p_args, pw)
+            max_err = max(max_err, assert_equal_outputs(got, want, what),
+                          assert_equal_outputs(again, want, what))
+    log("kernel == plain: fold edge rows (ev_cnt 0, W, past W, negative; "
+        "invalid ids; pair ids outside the width; NaN features; negative "
+        "and NaN chain) at W 16, 64, 512 and pair widths 4, 16, 128")
     args, pw = edge_batch(dev)
     got = rf.rules_fold(*args, pw)
     torch.cuda.synchronize()
@@ -2057,6 +2204,7 @@ def main(argv: list[str]) -> int:
         f"{raw['fetch_seconds'] * 1e3:.3f} ms")
     c3_args = (*backend.device_arrays(snapshot),
                torch.zeros(batch.padded_incidents, device=dev))
+    rules_digests("config3", c3_args, batch.pair_width)
     t3 = kernel_timing(c3_args, batch.pair_width)
     log(f"config 3 timing: {t3}")
 
@@ -2120,9 +2268,10 @@ def main(argv: list[str]) -> int:
         "plain_ms_per_call": t3["plain_ms_per_call"],
         "config4_shape": c4_shape,
         "bound_bytes": t3["bound_bytes"],
+        "ms_by_kernel": t3["ms_by_kernel"],
         "config4": {k: c4_timing[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_bytes", "ms_per_call",
-                                             "timed_by")},
+                                             "ms_by_kernel", "timed_by")},
     }, {
         "name": "gms", "route": "cuda",
         "source": "kubernetes_aiops_evidence_graph_tpu_torch/kernels/gms.cu",
@@ -2303,6 +2452,12 @@ def main(argv: list[str]) -> int:
         "grad_w_at_launch_shapes": {
             "offline_train": offline["grad_w"],
             "config4_online_learner": online["grad_w"]},
+        "config3_grad_w_ms_by_kernel": bwd3["ms_by_kernel"],
+        "rules_fold_ms": {"config3": t3["ms"], "config4": c4_timing["ms"]},
+        "rules_fold_ms_by_kernel": {"config3": t3["ms_by_kernel"],
+                                    "config4": c4_timing["ms_by_kernel"]},
+        "config4_rules_events_per_s": eps,
+        "config4_rules_dispatch_p50_ms": tick_ms,
         "config4_learned_events_per_s": {
             "composed": learned4["events_per_s"],
             **{t: r["events_per_s"] for t, r in tiers.items()}}}}))

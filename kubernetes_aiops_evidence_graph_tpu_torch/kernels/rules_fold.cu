@@ -12,13 +12,25 @@
 // NO_RECENT_DEPLOY = !(HAS_RECENT_DEPLOY > 0)).
 //
 // Design (one thread block per padded incident row i, 64 threads):
-//   * threads 0..47 own one feature column each and walk the LIVE slots
-//     w < ev_cnt[i] in slot order, so the 48 threads of a slot read one
-//     contiguous 192-byte feature row and nothing past the live prefix is
-//     gathered;
-//   * the thread owning F.POD_PROBLEM also adds each slot's value into a
-//     [pair_width] histogram in shared memory, in slot order (ids outside
-//     [0, pair_width) are the "no node" sentinel and drop out);
+//   * one round trip brings everything the row needs before its gathers:
+//     ev_cnt[i], chain[i], the first 64 slots of ev_idx and ev_pair_slot
+//     (read whatever ev_cnt says, one coalesced load each), and, into the
+//     lanes of warp 0, the condition and rule tables of the tail;
+//   * the row's live slots w < ev_cnt[i] are then taken in chunks of 64:
+//     the chunk's indices and pair ids go to shared memory (the next
+//     chunk's read after the current one is done), and threads 0..47, one
+//     feature column each, issue the gathers of all the chunk's slots
+//     into registers before adding any of them; the 48 threads of a slot
+//     read one contiguous 192-byte feature row, and an invalid id (outside
+//     [0, Pn)) is neither read nor added;
+//   * each column's count is the sum of its values in slot order, from 0;
+//     the POD_PROBLEM column also leaves each slot's value in shared
+//     memory, and the pair histogram is then added bin by bin: thread t
+//     owns bins t, t + 64, ..., and adds into each the values of the slots
+//     whose pair id is that bin, in slot order (ids outside
+//     [0, pair_width) are the "no node" sentinel and drop out). These are
+//     the float operations, in the order, of the first version, in which
+//     one thread added every slot into a shared histogram;
 //   * warp 0 then takes the max of the histogram (per_row_max), evaluates
 //     one condition per lane from the condition table, ANDs conditions into
 //     rules with a ballot, and reduces the first-maximal rule score with
@@ -30,10 +42,11 @@
 // feature row the live slots gather (192 B a row; incidents sharing an
 // entity share its row), the index and pair id of each live slot (8 B),
 // ev_cnt and chain, and its outputs (rules_fold.py::bound_bytes); the
-// arithmetic is a few adds per gathered value. This first version does nothing to hide
-// the latency of the dependent index->row loads beyond running all Pi
-// rows' blocks at once; prefetching slots with cp.async/TMA and packing
-// several rows per block is later work.
+// arithmetic is a few adds per gathered value. A pass is far from that
+// bound: its floor is a launch and two dependent round trips to memory
+// (the row's indices, then its feature rows), however few bytes it moves.
+// Left for later: CUDA graphs for the host's dispatch of a tick, which
+// costs far more than the pass (PERF.md).
 //
 // Plain C interface for ctypes: rules_fold_launch returns the
 // cudaGetLastError() code after the launch (0 = success).
@@ -46,8 +59,8 @@ namespace {
 
 constexpr int kDim = 48;          // graph/schema.DIM
 constexpr int kThreads = 64;
+constexpr int kSlots = kThreads;  // live slots staged and gathered a chunk
 constexpr int kPerRowMaxBit = kDim;  // condition-mask bit for per_row_max
-
 // NaN-propagating max (jnp.max semantics)
 __device__ __forceinline__ float nan_max(float a, float b) {
     return (isnan(a) || a >= b) ? a : b;
@@ -70,33 +83,84 @@ __global__ void __launch_bounds__(kThreads) rules_fold_kernel(
     float* __restrict__ top_score_out) {
     extern __shared__ float hist[];          // [pair_width]
     __shared__ float counts[kDim];
+    __shared__ int idx_s[kSlots];            // the chunk's rows (-1: invalid)
+    __shared__ int bin_s[kSlots];            // their pair bins (-1: none)
+    __shared__ float pod_s[kSlots];          // their POD_PROBLEM values
 
     const int i = blockIdx.x;
     const int t = threadIdx.x;
+    const int* idx = ev_idx + (size_t)i * width;
+    const int* slot = ev_pair + (size_t)i * width;
+
+    // one round trip: the row's count, chain, first chunk and the tables
     int cnt = ev_cnt[i];
+    const float c = chain[i];
+    int n_next = 0, p_next = -1;
+    if (t < width) {
+        n_next = idx[t];
+        p_next = slot[t];
+    }
+    unsigned long long cm = 0ull;
+    float cth = 0.0f, rs = 0.0f, rc = 0.0f;
+    int cop = 0;
+    unsigned rm = 0u;
+    if (t < n_conds) {
+        cm = cond_mask[t];
+        cth = cond_thresh[t];
+        cop = cond_op[t];
+    }
+    if (t < n_rules) {
+        rm = rule_mask[t];
+        rs = rule_score[t];
+        rc = rule_conf[t];
+    }
+    for (int r = t; r < pair_width; r += kThreads) hist[r] = 0.0f;
     cnt = cnt < 0 ? 0 : (cnt > width ? width : cnt);
 
-    for (int r = t; r < pair_width; r += kThreads) hist[r] = 0.0f;
-    __syncthreads();
-
-    if (t < kDim) {
-        const int* idx = ev_idx + (size_t)i * width;
-        const int* slot = ev_pair + (size_t)i * width;
-        const bool pair_col = (t == pod_problem);
-        float acc = 0.0f;
-        for (int w = 0; w < cnt; ++w) {
-            const int n = idx[w];
-            if ((unsigned)n >= (unsigned)pn) continue;   // invalid id: no row
-            const float v = features[(size_t)n * kDim + t];
-            acc += v;
-            if (pair_col) {
-                const int s = slot[w];
-                if (s >= 0 && s < pair_width) hist[s] += v;
+    float acc = 0.0f;
+    for (int c0 = 0; c0 < cnt; c0 += kSlots) {
+        const int n = min(kSlots, cnt - c0);
+        if (c0 > 0) {
+            __syncthreads();                 // the last chunk is consumed
+            if (t < n) {
+                n_next = idx[c0 + t];
+                p_next = slot[c0 + t];
             }
         }
-        const float c = chain[i];
-        counts[t] = acc + (c > 0.0f ? 0.0f : c);   // min(chain, 0), NaN kept
+        if (t < n) {
+            const bool valid = (unsigned)n_next < (unsigned)pn;
+            idx_s[t] = valid ? n_next : -1;
+            bin_s[t] = valid && p_next >= 0 && p_next < pair_width ? p_next
+                                                                   : -1;
+        }
+        __syncthreads();
+        if (t < kDim) {
+            // every gather of the chunk in flight, then the adds in slot
+            // order; the POD_PROBLEM column keeps its values for the pairs
+            float v[kSlots];
+#pragma unroll
+            for (int k = 0; k < kSlots; ++k) {
+                const int nk = k < n ? idx_s[k] : -1;
+                v[k] = nk >= 0 ? features[(size_t)nk * kDim + t] : 0.0f;
+            }
+#pragma unroll
+            for (int k = 0; k < kSlots; ++k)
+                if (k < n && idx_s[k] >= 0) acc += v[k];
+            if (t == pod_problem) {
+#pragma unroll
+                for (int k = 0; k < kSlots; ++k)
+                    if (k < n) pod_s[k] = v[k];
+            }
+        }
+        __syncthreads();
+        // the pair histogram, bin by bin, each bin's slots in slot order
+#pragma unroll 4
+        for (int k = 0; k < n; ++k) {
+            const int b = bin_s[k];
+            if (b >= 0 && b % kThreads == t) hist[b] += pod_s[k];
+        }
     }
+    if (t < kDim) counts[t] = acc + (c > 0.0f ? 0.0f : c);   // min(chain, 0)
     __syncthreads();
 
     if (t >= 32) return;
@@ -112,18 +176,16 @@ __global__ void __launch_bounds__(kThreads) rules_fold_kernel(
     // feature order (finish_scores' left-to-right sums), then compared
     bool cv = false;
     if (t < n_conds) {
-        const unsigned long long m = cond_mask[t];
         float s = 0.0f;
         bool first = true;
-        for (int f = 0; f <= kDim; ++f) {
-            if (!((m >> f) & 1ull)) continue;
+        for (unsigned long long bits = cm; bits; bits &= bits - 1) {
+            const int f = __ffsll((long long)bits) - 1;   // ascending
             const float x = (f == kPerRowMaxBit) ? prm : counts[f];
             s = first ? x : s + x;
             first = false;
         }
-        const int op = cond_op[t];
-        bool r = (op & 1) ? (s >= cond_thresh[t]) : (s > cond_thresh[t]);
-        if (op & 2) r = !r;
+        bool r = (cop & 1) ? (s >= cth) : (s > cth);
+        if (cop & 2) r = !r;
         cv = r;
         conds_out[(size_t)i * n_conds + t] = cv ? 1 : 0;
     }
@@ -133,9 +195,8 @@ __global__ void __launch_bounds__(kThreads) rules_fold_kernel(
     bool mv = false;
     float sc = 0.0f;
     if (t < n_rules) {
-        const unsigned rm = rule_mask[t];
         mv = (bits & rm) == rm;
-        sc = mv ? rule_score[t] : 0.0f;
+        sc = mv ? rs : 0.0f;
         matched_out[(size_t)i * n_rules + t] = mv ? 1 : 0;
         scores_out[(size_t)i * n_rules + t] = sc;
     }
@@ -152,11 +213,12 @@ __global__ void __launch_bounds__(kThreads) rules_fold_kernel(
             bi = oi;
         }
     }
+    const float conf = __shfl_sync(full, rc, bi & 31);   // rule_conf[bi]
     if (t == 0) {
         top_idx_out[i] = bi;
         any_out[i] = any ? 1 : 0;
         top_score_out[i] = any ? best : unknown_score;
-        top_conf_out[i] = any ? rule_conf[bi] : unknown_conf;
+        top_conf_out[i] = any ? conf : unknown_conf;
     }
 }
 

@@ -9,19 +9,26 @@ matching, constant-folded scores, first-maximal top-1).
 
 On a CUDA tensor it launches ``rules_fold.cu``, one hand-written kernel
 that replaces the Pallas rules tail (``experiments/pallas_rules.py::
-_rules_kernel``) together with the XLA fold that feeds it. On a CPU tensor
-it runs :func:`rules_fold_reference`, the plain PyTorch version, which the
-tests hold against the JAX package and ``chip_smoke.py`` holds the kernel
-against on the card. There is no fallback from one to the other.
+_rules_kernel``) together with the XLA fold that feeds it: one block of 64
+threads per incident row, which reads the row's count, chain, first 64
+slots and the rule tables in one round trip, then issues the gathers of a
+whole 64-slot chunk before adding them in slot order (one thread per
+feature column; the pair histogram bin by bin, each bin's slots in slot
+order), and ends in warp 0 with the conditions, rules and first-maximal
+top-1. No floating-point atomics, so the same bits on every run. On a CPU
+tensor it runs :func:`rules_fold_reference`, the plain PyTorch version,
+which the tests hold against the JAX package and ``chip_smoke.py`` holds
+the kernel against on the card. There is no fallback from one to the other.
 
 Bound on an H100: bytes. A pass must read each distinct feature row its
 live slots gather (``DIM * 4`` bytes a row), the index and pair id of each
 live slot, ``ev_cnt`` and ``chain``, and write its outputs
-(:func:`bound_bytes`); it does a few adds per gathered value. The kernel reads only live slots and keeps the counts,
-the pair histogram and the whole rules tail on chip, so nothing between
-the fold and the verdict touches device memory. See the ``.cu`` source for
-the block layout and what is left for later (prefetching the dependent
-index → row loads).
+(:func:`bound_bytes`); it does a few adds per gathered value. The kernel
+reads only live slots and keeps the counts, the pair histogram and the
+whole rules tail on chip, so nothing between the fold and the verdict
+touches device memory; its floor is a launch and two dependent round
+trips (the row's indices, then the rows). See the ``.cu`` source for what
+is left for later.
 """
 from __future__ import annotations
 

@@ -159,6 +159,51 @@ def test_work_items_cut_every_slice_into_equal_runs_of_tiles():
     assert len(big) <= grad_w.ITEM_TILES_TARGET
 
 
+def test_col_groups_spread_few_items_and_depend_on_the_layout_alone():
+    """Four column groups where the items alone leave most of the card
+    idle, one where they fill it; a split is taken only when the card holds
+    its whole grid at once, and the same layout always gets the same
+    split."""
+    cap = grad_w.GRID_CAPACITY
+    assert grad_w.col_groups(17, 64, 64) == 4
+    assert grad_w.col_groups(cap[4] // 4, 64, 64) == 4
+    assert grad_w.col_groups(cap[4] // 4 + 1, 64, 64) == 2
+    assert grad_w.col_groups(cap[2] // 2, 64, 64) == 2
+    assert grad_w.col_groups(cap[2] // 2 + 1, 64, 64) == 1
+    assert grad_w.col_groups(10 * cap[2], 64, 64) == 1
+    assert grad_w.col_groups(0, 64, 64) == 4
+    # wider outputs already give more blocks per item
+    assert grad_w.col_groups(cap[4] // 4, 128, 64) == 2
+    for offs in ((0, 1088), (0, 64, 64, 5000, 20000), (0, 64 * 4000)):
+        n_items = len(grad_w.work_items(offs)[0])
+        groups = grad_w.col_groups(n_items, 64, 64)
+        assert groups == 1 or n_items * groups <= cap[groups]
+        assert groups == grad_w.col_groups(
+            len(grad_w.work_items(offs)[0]), 64, 64)
+
+
+@pytest.mark.parametrize("offs", [
+    (0,), (0, 0), (0, 5, 5, 700, 9000, 9001, 20000), (0, 64 * 100_000),
+    tuple(range(0, 64 * 33, 64)), (0, 1088, 1088, 4000)])
+def test_launch_layout_gives_every_work_item_by_arithmetic(offs):
+    """What the kernel takes instead of the item table: the slices, each
+    slice's first item and the item length. Its arithmetic (the relation
+    is the last slice whose first item is at most i; the item runs
+    per_item edges from its slice's start) gives work_items' items."""
+    items, rel_items = grad_w.work_items(offs)
+    offs_np, rel_np, n_items, per_item = grad_w._launch_layout(offs)
+    assert n_items == len(items) == rel_np[-1]
+    np.testing.assert_array_equal(rel_np, rel_items)
+    n_slices = len(offs) - 1
+    for i, (r, lo, hi) in enumerate(items):
+        rel = 0
+        while rel + 1 < n_slices and rel_np[rel + 1] <= i:
+            rel += 1
+        start = offs_np[rel] + (i - rel_np[rel]) * per_item
+        assert (rel, start, min(offs_np[rel + 1], start + per_item)) == \
+            (r, lo, hi)
+
+
 @pytest.mark.parametrize("name", sorted(GRAD_CASES))
 def test_kernel_order_emulated_equals_plain_version(name):
     """The CUDA kernel's order on the CPU: per work item the live edges'

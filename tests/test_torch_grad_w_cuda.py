@@ -136,3 +136,115 @@ def test_gms_function_grads_equal_plain_autograd(cuda_device):
             fresh = gms.make_plan(dev[3], dev[4], offs, n)
             gms.gather_matmul_segment(h, w, *dev[2:5], offs, n, plan=fresh)
         assert not fresh._transposed
+
+
+def _device_case(name, dev, seed=6):
+    hmat, w_rel, src, dst, mask, offs, n, ct = grad_case(name, seed=seed)
+    t = [torch.from_numpy(x).to(dev) for x in (hmat, ct, src, dst, mask)]
+    return t, offs, w_rel.shape[0], mask
+
+
+@pytest.mark.cuda
+def test_grad_w_bits_equal_under_every_column_split(cuda_device):
+    """The column split the wrapper chooses from the layout changes no
+    output's operations: 1, 2 and 4 column groups give the same bits (f32
+    and bf16 h), and so does the wrapper's own choice."""
+    for name in sorted(GRAD_CASES):
+        t, offs, nr, _ = _device_case(name, cuda_device)
+        for cdt in (None, "bfloat16"):
+            chosen = grad_w.gms_grad_w(*t, offs, nr, compute_dtype=cdt)
+            for groups in (1, 2, 4):
+                got = grad_w.gms_grad_w(*t, offs, nr, compute_dtype=cdt,
+                                        _col_groups=groups)
+                torch.cuda.synchronize()
+                assert torch.equal(got.view(torch.int32),
+                                   chosen.view(torch.int32)), \
+                    (name, cdt, groups)
+
+
+@pytest.mark.cuda
+def test_grad_w_long_items_equal_plain_version_under_every_split(
+        cuda_device):
+    """A layout of more than ITEM_TILES_TARGET tiles, so that each work item
+    runs over several tiles (the staging ring wraps around) and relations
+    hold many items: within 1e-5 of the result's scale of the plain version
+    on a CPU copy, and the same bits at 1, 2 and 4 column groups."""
+    caps = (64 * 300, 64 * 200, 64 * 3, 0, 64 * 150)
+    hmat, _, src, dst, mask, offs, n = layout(
+        11, caps, (64 * 300 - 5, 64 * 180, 130, 0, 64 * 150), n=3000, h=64,
+        k=64)
+    assert len(grad_w.work_items(offs)[0]) < offs[-1] // 64
+    ct = np.random.default_rng(12).standard_normal((n, 64)).astype(
+        np.float32) / n
+    t = [torch.from_numpy(x).to(cuda_device)
+         for x in (hmat, ct, src, dst, mask)]
+    want = gms_grad_w(*(x.cpu() for x in t), offs, 6)
+    scale = float(want.abs().max())
+    first = None
+    for groups in (1, 2, 4):
+        got = grad_w.gms_grad_w(*t, offs, 6, _col_groups=groups)
+        torch.cuda.synchronize()
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+        if first is None:
+            first = got
+        assert torch.equal(got.view(torch.int32), first.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_grad_w_bits_equal_on_two_streams(cuda_device):
+    """Two launches on two streams, back to back and free to overlap, each
+    with its own partials: both equal a launch on the default stream."""
+    for name in ("aligned", "unaligned", "repeated_src_and_dst"):
+        t, offs, nr, _ = _device_case(name, cuda_device)
+        want = grad_w.gms_grad_w(*t, offs, nr, _col_groups=4)
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+        got = []
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream(cuda_device))
+            with torch.cuda.stream(s):
+                got.append(grad_w.gms_grad_w(*t, offs, nr, _col_groups=4))
+        torch.cuda.synchronize()
+        for g in got:
+            assert torch.equal(g.view(torch.int32), want.view(torch.int32)), \
+                name
+
+
+@pytest.mark.cuda
+def test_grad_w_bits_equal_after_a_layout_with_more_relations(
+        cuda_device):
+    """A launch on a layout with more relations, each of several items,
+    leaves nothing behind that a later launch reads: two launches on a
+    smaller layout after it equal one before it, bit for bit."""
+    small, offs_s, nr_s, _ = _device_case("aligned", cuda_device)
+    hmat, _, src, dst, mask, offs_b, n = layout(
+        8, (192,) * 7, (150, 192, 3, 0, 100, 192, 64))
+    rng = np.random.default_rng(9)
+    big = [torch.from_numpy(x).to(cuda_device) for x in (
+        hmat, rng.standard_normal((n, 8)).astype(np.float32), src, dst,
+        mask)]
+    assert len(offs_b) > len(offs_s)
+    before = grad_w.gms_grad_w(*small, offs_s, nr_s)
+    for groups in (1, 4):
+        grad_w.gms_grad_w(*big, offs_b, 7, _col_groups=groups)
+    first = grad_w.gms_grad_w(*small, offs_s, nr_s)
+    second = grad_w.gms_grad_w(*small, offs_s, nr_s)
+    torch.cuda.synchronize()
+    for got in (first, second):
+        assert torch.equal(got.view(torch.int32), before.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_grad_w_exact_zeros_for_relations_without_live_edges(cuda_device):
+    """Zero-width slices, all-padding slices and relations past the
+    layout's slices get +0.0 in every element, under every split."""
+    for name in ("all_padding_and_zero_width", "relations_past_the_layout",
+                 "aligned", "unaligned"):
+        t, offs, nr, mask = _device_case(name, cuda_device)
+        for groups in (1, 2, 4):
+            got = grad_w.gms_grad_w(*t, offs, nr, _col_groups=groups).cpu()
+            for r in range(nr):
+                lo, hi = (offs[r], offs[r + 1]) if r < len(offs) - 1 else (0, 0)
+                if not mask[lo:hi].any():
+                    assert not got[r].view(torch.int32).any(), \
+                        (name, groups, r)

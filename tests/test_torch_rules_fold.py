@@ -17,6 +17,7 @@ from kubernetes_aiops_evidence_graph_tpu.graph.schema import DIM, F
 from kubernetes_aiops_evidence_graph_tpu.rca import tpu_backend as jtb
 from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
 from kubernetes_aiops_evidence_graph_tpu_torch.rca import RULE_INDEX
+from chip_smoke import fold_edge_rows
 from tests.test_rca_parity import run_pipeline
 
 # one intra-op thread: these tensors are small, and the suite runs
@@ -230,6 +231,40 @@ def test_cuda_kernel_equals_plain_version(cuda_device):
         _assert_same([t.cpu() for t in got],
                      [t.cpu() for t in rf.rules_fold_reference(*arrays, pw)],
                      f"W={width}")
+
+
+@pytest.mark.parametrize("width", [16, 64, 512])
+def test_plain_matches_score_device_on_fold_edge_rows(width):
+    """The plain version equals the JAX package's _score_device on the fold
+    edge rows (chip_smoke.fold_edge_rows' plain inputs: the invalid slots
+    taken out), every output exactly."""
+    _, plain = fold_edge_rows(width, 256, 16, width, 8, "cpu")
+    plain = [t.numpy() for t in plain]
+    _assert_same(_port_score(plain, 8), _jax_score(plain, 8),
+                 f"edge rows W={width}")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_equals_plain_version_on_fold_edge_rows(cuda_device):
+    """On the card, at W 16, 64 and 512 (chip_smoke.fold_edge_rows): rows
+    with ev_cnt 0, == W, past W and negative, invalid ids between live
+    slots and past ev_cnt, pair ids outside [0, pair_width), NaN features
+    (outside POD_PROBLEM: the plain version's one-hot contraction would
+    spread such a NaN to every bin), a negative and a NaN chain. The kernel
+    equals the plain version on the same rows without their invalid slots,
+    bit for bit, and two launches are equal."""
+    for width in (16, 64, 512):
+        for pair_width in (4, 16, 128):
+            args, plain = fold_edge_rows(width + pair_width, 512, 32, width,
+                                         pair_width, cuda_device)
+            got = rf.rules_fold(*args, pair_width)
+            again = rf.rules_fold(*args, pair_width)
+            torch.cuda.synchronize()
+            want = rf.rules_fold_reference(*(t.cpu() for t in plain),
+                                           pair_width)
+            what = f"W={width} pair width {pair_width}"
+            _assert_same([t.cpu() for t in got], want, what)
+            _assert_same([t.cpu() for t in again], want, what)
 
 
 @pytest.fixture
