@@ -104,7 +104,30 @@ the learned model's training, offline (``rca/train.py``) and online
    incident's scenario rule; harvest, ``learn_steps`` fine-tune steps, the
    gate, and after a swap the next tick on generation 1 within 1e-5 of a
    fresh forward with the candidate;
-11. prints a ``{"gms_compare": {...}}`` line (the message pass split by
+11. the app, the port's main path through its own entry point
+   (``run_app``): ``AiopsApp`` on the card serving the config-4 world
+   (10,000 pods, the cluster's topology synced into the app's graph, 100
+   faults injected as ``streaming_world`` injects them), 100 Alertmanager
+   webhooks posted over HTTP in batches of 10, each incident's
+   ``/status`` polled until its workflow closed it (the phase fails past
+   ``APP_DEADLINE_S``), once per backend: ``rca_backend="tpu"``
+   (``rules_fold`` must launch) and ``"gnn"`` at the shipped checkpoint's
+   width (``gms`` must launch; the served scorer a ``GnnStreamingScorer``,
+   not the rules fallback). Every incident has hypotheses from the
+   resident scorer, a runbook and the actions its policy proposed, and
+   the incident counters moved; rules: each served top rule equals the
+   snapshot path's (B1) on the app's final store, and the CPU oracle's
+   disagreements are counted; learned: the served top-1 that later
+   incidents changed are counted. Then a second run per backend with one
+   workflow slot and the scorer on the simulator's clock holds every
+   serve against the snapshot path on the store at that moment (rules:
+   every output equal; learned: probs within 1e-5, top-1 equal) and each
+   incident's hypotheses against the serve they came from. Printed on an
+   ``{"app": {...}}`` line: webhook → verdict p50/p95 (the port's SCOPE
+   histogram), webhook → closed p50/p95, incidents/s, launches, ticks,
+   the device time of the phase (profiler) a tick and its busy share,
+   beside the card's name and power limit;
+12. prints a ``{"gms_compare": {...}}`` line (the message pass split by
    kernel at config 3, forward and dh, and config 4; the hub probe; the
    learned forward, the train step, the ticks per tier, each split by
    kernel, and learned events/s; ``grad_w`` per launch at the trainer's
@@ -140,6 +163,7 @@ import statistics
 import subprocess
 import sys
 import time
+import uuid
 
 import numpy as np
 
@@ -2058,6 +2082,347 @@ def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
     return res
 
 
+# -- the app: webhooks to closed incidents through the port's AiopsApp -----
+
+APP_DEADLINE_S = 300.0
+"""The app phase fails when an incident's workflow has not completed this
+many seconds after its webhook batches were posted."""
+
+
+def _http(base: str, path: str, payload=None):
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        body = r.read()
+    return body if path == "/metrics" else json.loads(body)
+
+
+def _metric_total(text: str, name: str) -> float:
+    """Sum of a counter's samples over all its label sets."""
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith(name + "{") or ln.startswith(name + " "))
+
+
+def histogram_counts(hist, **match) -> tuple[list, int]:
+    """A histogram's cumulative bucket counts and sample count, summed
+    over the label sets whose labels include ``match``."""
+    counts, total = [0] * len(hist.buckets), 0
+    with hist._lock:
+        for key, cs in hist._counts.items():
+            if all(dict(key).get(k) == v for k, v in match.items()):
+                counts = [a + b for a, b in zip(counts, cs)]
+                total += hist._totals[key]
+    return counts, total
+
+
+def histogram_percentiles(hist, before: tuple, after: tuple, qs) -> dict:
+    """Percentiles (``Histogram.percentile``) of the samples a histogram
+    took between two ``histogram_counts`` readings."""
+    delta = type(hist)(hist.name, buckets=hist.buckets)
+    delta._counts[()] = [a - b for a, b in zip(after[0], before[0])]
+    delta._totals[()] = total = after[1] - before[1]
+    return {"samples": total, **{f"p{int(q * 100)}": (
+        delta.percentile(q) if total else None) for q in qs}}
+
+
+def app_alerts(num_pods: int, num_incidents: int, seed: int):
+    """The simulated cluster with ``num_incidents`` faults injected as
+    ``streaming_world`` injects them, and the Alertmanager alert each
+    fault raises (the incident's own alertname, namespace, service and
+    severity)."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator import (
+        SCENARIOS, generate_cluster, inject)
+    cluster = generate_cluster(num_pods=num_pods, seed=seed)
+    rng = np.random.default_rng(seed)
+    keys = sorted(cluster.deployments)
+    names = sorted(SCENARIOS)
+    alerts = []
+    for i in range(num_incidents):
+        inc = inject(cluster, names[i % len(names)], keys[(i * 7) % len(keys)],
+                     rng)
+        alerts.append({"status": "firing",
+                       "labels": {**inc.labels,
+                                  "severity": inc.severity.value},
+                       "annotations": {"summary": inc.title},
+                       "startsAt": inc.started_at.isoformat()})
+    if len({(a["labels"]["alertname"], a["labels"]["namespace"],
+             a["labels"]["service"]) for a in alerts}) != num_incidents:
+        raise AssertionError("two injected incidents share a fingerprint")
+    return cluster, alerts
+
+
+def checked_serve(scorer, settings, backend: str, dev) -> dict:
+    """Hold every verdict the resident ``scorer`` serves against the
+    snapshot path on the store as it is at that moment, on the same device
+    and the scorer's replay clock: ``rca_backend="tpu"`` every output
+    equal (B1 on both sides), ``"gnn"`` top-1 equal and probs within 1e-5
+    of ``GnnRcaBackend``. Returns the check's record, which the serves
+    fill in: ``serves`` checked, ``max_abs_err`` of the probs, ``errors``,
+    and ``first_seen``, each incident's row of the first serve that held
+    it (the one its own workflow's verdict came from). Only sound while no
+    other workflow writes the store meanwhile (a worker with one slot)."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph import build_snapshot
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import get_backend
+    ref_backend = get_backend(backend, device=dev)
+    serve = scorer.serve
+    check = {"serves": 0, "max_abs_err": None, "errors": [],
+             "first_seen": {}}
+
+    def checked(newest: bool = False) -> dict:
+        out = serve(newest=newest)
+        try:
+            with kept_counts():
+                ref = ref_backend.score_snapshot(build_snapshot(
+                    scorer.store, settings, now_s=scorer.now_s))
+            what = f"app {backend}: serve #{check['serves'] + 1}"
+            if backend == "tpu":
+                same_verdicts(out, ref, what)
+            else:
+                same_learned_verdicts(out, ref, what)
+                b = {nid: i for i, nid in enumerate(ref["incident_ids"])}
+                err = max(float(np.abs(out["probs"][i] - ref["probs"][
+                    b[nid]]).max()) for i, nid in enumerate(
+                        out["incident_ids"]))
+                check["max_abs_err"] = max(check["max_abs_err"] or 0.0, err)
+                if err > 1e-5:
+                    raise AssertionError(f"{what}: probs {err:.3g} from the "
+                                         f"snapshot path's")
+            for i, nid in enumerate(out["incident_ids"]):
+                check["first_seen"].setdefault(nid, {
+                    k: out[k][i] for k in ("top_rule_index", "any_match",
+                                           "probs") if k in out})
+            check["serves"] += 1
+        except Exception as exc:
+            check["errors"].append(str(exc))
+            raise
+        return out
+
+    scorer.serve = checked
+    return check
+
+
+def run_app(backend: str, dev, num_pods: int = 10_000,
+            num_incidents: int = 100, batch: int = 10, seed: int = 0,
+            deadline_s: float = APP_DEADLINE_S, verify: bool = False,
+            **overrides) -> dict:
+    """The port's main path through its own entry point: ``AiopsApp`` on
+    ``dev`` serving the config-4 world (``num_pods`` pods, the cluster's
+    topology synced into the app's evidence graph as a deployment holds
+    it), ``num_incidents`` Alertmanager webhooks posted over HTTP in
+    batches of ``batch``, each incident's ``/status`` polled until its
+    workflow completes (fails past ``deadline_s``). Then: every incident
+    has hypotheses (scored by the resident scorer), a runbook and the
+    actions its policy proposed, and the incident counters moved.
+
+    Timed run (``verify=False``, the worker's four slots): the phase's
+    numbers and launches; ``rca_backend="tpu"``: each served top rule
+    equals the top-1 of the snapshot path (``get_backend("tpu")``, B1) on
+    the app's final store; ``"gnn"``: the resident scorer's final verdicts
+    equal ``GnnRcaBackend``'s on the final store (``same_learned_verdicts``),
+    and the served top-1 that later incidents' evidence changed are
+    counted (a learned verdict reads three hops of the graph).
+    ``verify=True``: one workflow slot and every serve held against the
+    snapshot path at that moment (``checked_serve``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_aiops_evidence_graph_tpu_torch.app import AiopsApp
+    from kubernetes_aiops_evidence_graph_tpu_torch.config import load_settings
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph import build_snapshot
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph.topology_sync import (
+        sync_topology)
+    from kubernetes_aiops_evidence_graph_tpu_torch.observability import (
+        metrics as obs_metrics)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import (
+        RULE_INDEX, RULES, get_backend)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.cpu_backend import (
+        CpuRcaBackend)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
+        GnnStreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
+        StreamingScorer)
+
+    t0 = time.perf_counter()
+    cluster, alerts = app_alerts(num_pods, num_incidents, seed)
+    settings = load_settings(api_port=0, db_path=":memory:",
+                             remediation_dry_run=False,
+                             verification_wait_seconds=0,
+                             rca_backend=backend, **overrides)
+    app = AiopsApp(cluster, settings, device=dev)
+    sync_topology(cluster, app.store)
+    world_s = time.perf_counter() - t0
+    check = {"serves": 0, "max_abs_err": None, "errors": []}
+    if verify:
+        # one workflow slot, and the scorer the worker would build on the
+        # simulator's clock, so that a snapshot built later reads the
+        # same recency features
+        app.worker.concurrency = 1
+        app.worker.scorer = (GnnStreamingScorer if backend == "gnn"
+                             else StreamingScorer)(
+            app.store, settings, now_s=cluster.now.timestamp(), device=dev)
+        check = checked_serve(app.worker.scorer, settings, backend, dev)
+    errors = check["errors"]
+    on_card = dev.type == "cuda"
+    prof = (profile(activities=[ProfilerActivity.CUDA]) if on_card
+            else contextlib.nullcontext())
+    done_at: dict[str, float] = {}
+    posted_at: dict[str, float] = {}
+    try:
+        base = f"http://127.0.0.1:{app.start(host='127.0.0.1')}"
+        metrics_before = _http(base, "/metrics").decode()
+        hist = obs_metrics.WEBHOOK_VERDICT_LATENCY
+        lat_before = histogram_counts(hist, backend=backend)
+        reset_counts()
+        with prof:
+            t_start = time.perf_counter()
+            for b in range(0, len(alerts), batch):
+                t_post = time.perf_counter()
+                out = _http(base, "/api/v1/webhooks/alertmanager",
+                            {"alerts": alerts[b:b + batch]})
+                if len(out["created"]) != len(alerts[b:b + batch]):
+                    raise AssertionError(f"app {backend}: batch {b // batch} "
+                                         f"created {out}")
+                posted_at.update({iid: t_post for iid in out["created"]})
+            while len(done_at) < len(posted_at):
+                if time.perf_counter() - t_start > deadline_s:
+                    raise AssertionError(
+                        f"app {backend}: {len(posted_at) - len(done_at)} "
+                        f"incidents not completed within {deadline_s} s")
+                for iid in posted_at:
+                    if iid in done_at:
+                        continue
+                    st = _http(base, f"/api/v1/incidents/{iid}/status")
+                    if st["state"] == "failed" or errors:
+                        raise AssertionError(f"app {backend}: workflow of "
+                                             f"{iid} {st['state']}: "
+                                             f"{errors[:1]}")
+                    # "completed" alone also reads between two steps
+                    if "close_incident" in st["completed"]:
+                        done_at[iid] = time.perf_counter()
+                time.sleep(0.01)
+            wall = time.perf_counter() - t_start
+            if on_card:
+                torch.cuda.synchronize()
+        counts = read_counts()
+        metrics_after = _http(base, "/metrics").decode()
+        served = {}
+        for iid in posted_at:
+            hyps = _http(base, f"/api/v1/incidents/{iid}/hypotheses"
+                         )["hypotheses"]
+            runbook = _http(base, f"/api/v1/incidents/{iid}/runbook")
+            actions = _http(base, f"/api/v1/incidents/{iid}/actions"
+                            )["actions"]
+            status = _http(base, f"/api/v1/incidents/{iid}/status")
+            policy = status["steps"]["evaluate_policy"]["result"] or {}
+            gen = status["steps"]["generate_hypotheses"]["result"]
+            if not hyps or not runbook.get("steps"):
+                raise AssertionError(f"app {backend}: {iid} has no "
+                                     f"hypotheses or runbook")
+            if policy.get("proposed") and not actions:
+                raise AssertionError(f"app {backend}: {iid}: the policy "
+                                     f"proposed an action, none recorded")
+            if gen["mode"] != "streaming":
+                raise AssertionError(f"app {backend}: {iid} was scored by "
+                                     f"the {gen['mode']} path, not the "
+                                     f"resident scorer")
+            served[iid] = hyps
+        for name in ("aiops_incidents_created_total",
+                     "aiops_incidents_resolved_total"):
+            moved = (_metric_total(metrics_after, name)
+                     - _metric_total(metrics_before, name))
+            if moved < len(posted_at):
+                raise AssertionError(f"app {backend}: {name} moved by "
+                                     f"{moved} for {len(posted_at)} incidents")
+        scorer = app.worker.scorer
+        want_type = GnnStreamingScorer if backend == "gnn" else StreamingScorer
+        if type(scorer) is not want_type:
+            raise AssertionError(f"app {backend}: served by "
+                                 f"{type(scorer).__name__}")
+        kernel = "gms" if backend == "gnn" else "rules_fold"
+        if on_card and counts[kernel] < 1:
+            raise AssertionError(f"app {backend}: {kernel} never launched")
+        ticks = scorer.dispatches
+        latency = histogram_percentiles(
+            hist, lat_before, histogram_counts(hist, backend=backend),
+            (0.5, 0.95))
+        device_ms_total = None
+        if on_card:
+            device_ms_total = sum(e.self_device_time_total for e in
+                                  prof.key_averages()
+                                  if e.self_device_time_total > 0) / 1e3
+
+        # the snapshot path on the app's final store, on the same device
+        with kept_counts():
+            snap = build_snapshot(app.store, settings)
+            row = {nid: i for i, nid in enumerate(snap.incident_ids)}
+            ref = get_backend(backend, device=dev).score_snapshot(snap)
+            top = {nid: (RULES[int(ref["top_rule_index"][i])].id
+                         if ref["any_match"][i] else "unknown")
+                   for nid, i in row.items()}
+            changed = [(iid, hyps[0]["rule_id"], top[f"incident:{iid}"])
+                       for iid, hyps in served.items()
+                       if hyps[0]["rule_id"] != top[f"incident:{iid}"]]
+            cpu_differs = 0
+            if backend == "tpu":
+                if changed:
+                    raise AssertionError(
+                        f"app tpu: {len(changed)} served top rules differ "
+                        f"from the snapshot path on the final store "
+                        f"{changed[:5]}")
+                cpu = CpuRcaBackend()
+                for iid, hyps in served.items():
+                    want = cpu.score_incident(
+                        uuid.UUID(iid), app.db.evidence_for(iid)
+                    ).top_hypothesis.rule_id
+                    cpu_differs += want != hyps[0]["rule_id"]
+        if errors:
+            raise AssertionError(f"app {backend}: {errors[0]}")
+        for iid, hyps in served.items() if verify else ():
+            seen = check["first_seen"][f"incident:{iid}"]
+            t = int(seen["top_rule_index"])
+            want = RULES[t].id if seen["any_match"] else "unknown"
+            if hyps[0]["rule_id"] != want:
+                raise AssertionError(f"app {backend}: {iid} served "
+                                     f"{hyps[0]['rule_id']}, its serve {want}")
+            for h in hyps if "probs" in seen else ():
+                if h["rule_id"] in RULE_INDEX and h["final_score"] != float(
+                        seen["probs"][RULE_INDEX[h["rule_id"]]]):
+                    raise AssertionError(f"app gnn: {iid} served "
+                                         f"{h['final_score']} for "
+                                         f"{h['rule_id']}, not its serve's")
+        lat = [done_at[i] - posted_at[i] for i in posted_at]
+        res = {
+            "backend": backend, "incidents": len(posted_at),
+            "world_s": world_s, "nodes": snap.num_nodes,
+            "padded_nodes": snap.padded_nodes,
+            "wall_s": wall, "incidents_per_s": len(posted_at) / wall,
+            "webhook_to_verdict_s": latency,
+            "webhook_to_closed_s": {
+                "p50": float(np.percentile(lat, 50)),
+                "p95": float(np.percentile(lat, 95)),
+                "max": float(max(lat))},
+            "launches": counts, "ticks": ticks,
+            "device_ms": device_ms_total,
+            "device_ms_per_tick": (device_ms_total / ticks
+                                   if device_ms_total and ticks else None),
+            "device_busy_share": (device_ms_total / 1e3 / wall
+                                  if device_ms_total else None),
+            "verify": verify,
+            "checked_serves": check["serves"],
+            "served_vs_snapshot_max_abs_err": check["max_abs_err"],
+            "served_top1_changed_by_later_incidents": len(changed),
+            "top1_differs_from_cpu_oracle": cpu_differs,
+            "scorer": type(scorer).__name__,
+            "coalesced_ticks": scorer.coalesced_ticks,
+            "absorb_busy": scorer.absorb_busy,
+        }
+    finally:
+        app.stop()
+    log(f"app {backend}: {res}")
+    return res
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -2246,6 +2611,12 @@ def main(argv: list[str]) -> int:
                    "offline_train": offline["launches"],
                    "config4_online_learner": online["launches"]}
 
+    # -- 11. the app: webhooks to closed incidents, both backends ----------
+    app_runs = {b: run_app(b, dev) for b in ("tpu", "gnn")}
+    app_checks = {b: run_app(b, dev, verify=True) for b in ("tpu", "gnn")}
+    app_paths = {f"app_{b}": r["launches"] for b, r in app_runs.items()}
+    rules_learned.update({k: c["rules_fold"] for k, c in app_paths.items()})
+
     kernels = [{
         "name": "rules_fold", "route": "cuda",
         "source": "kubernetes_aiops_evidence_graph_tpu_torch/kernels/rules_fold.cu",
@@ -2278,10 +2649,12 @@ def main(argv: list[str]) -> int:
         "replaces": "kubernetes_aiops_evidence_graph_tpu/ops/"
                     "pallas_segment.py:152 (_gms_kernel)",
         "launches": learned3["launches"] + learned4["launches"] + sum(
-            c["gms"] for c in train_paths.values()),
+            c["gms"] for c in train_paths.values()) + sum(
+            c["gms"] for c in app_paths.values()),
         "launches_by_path": {"config3_learned": learned3["launches"],
                              "config4_learned": learned4["launches"],
-                             **{k: c["gms"] for k, c in train_paths.items()}},
+                             **{k: c["gms"] for k, c in train_paths.items()},
+                             **{k: c["gms"] for k, c in app_paths.items()}},
         "config4_ticks": learned4["ticks"],
         "max_abs_err": gms_err,
         "ms": learned3["timing"]["ms"],
@@ -2377,6 +2750,12 @@ def main(argv: list[str]) -> int:
             "config4_online_learner": {k: online["grad_w"][k] for k in (
                 "ms_per_launch", "bound_ms", "launches")}},
     })
+    for b, r in app_runs.items():
+        log(f"app {b} ({smi}): {r['incidents_per_s']:.2f} incidents/s, "
+            f"webhook->verdict {r['webhook_to_verdict_s']}, webhook->closed "
+            f"{r['webhook_to_closed_s']}, launches {r['launches']}, "
+            f"{r['device_ms_per_tick']} device ms a tick; checked serves "
+            f"{app_checks[b]['checked_serves']}")
     log(f"config 4: rules {eps:.1f} events/s, dispatch p50 {tick_ms:.3f} ms; "
         f"learned {learned4['events_per_s']:.1f} events/s, dispatch p50 "
         f"{learned4['dispatch_p50_ms']:.3f} ms; total "
@@ -2461,6 +2840,19 @@ def main(argv: list[str]) -> int:
         "config4_learned_events_per_s": {
             "composed": learned4["events_per_s"],
             **{t: r["events_per_s"] for t, r in tiers.items()}}}}))
+    print(json.dumps({"app": {
+        "card": smi, "world": {"pods": 10_000, "incidents": 100,
+                               "webhook_batch": 10},
+        **{b: {k: r[k] for k in (
+            "incidents", "nodes", "padded_nodes", "wall_s",
+            "incidents_per_s", "webhook_to_verdict_s", "webhook_to_closed_s",
+            "launches", "ticks", "device_ms", "device_ms_per_tick",
+            "device_busy_share", "served_top1_changed_by_later_incidents",
+            "top1_differs_from_cpu_oracle", "coalesced_ticks",
+            "absorb_busy", "world_s")} for b, r in app_runs.items()},
+        "verify": {b: {k: r[k] for k in (
+            "checked_serves", "served_vs_snapshot_max_abs_err", "launches",
+            "wall_s")} for b, r in app_checks.items()}}}))
     print(json.dumps({"digests": DIGESTS}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -28,10 +28,105 @@ def _parse_buckets(raw: str) -> tuple[int, ...]:
 
 @dataclass(frozen=True)
 class Settings:
-    # --- evidence collection (collectors/) ---
+    # --- app ---
+    app_name: str = "kaeg-tpu"
+    app_env: str = "development"  # development|staging|uat|production
+    log_level: str = "INFO"
+    debug: bool = False
+
+    # --- api / ingestion (ingestion/, app.py) ---
+    api_host: str = "0.0.0.0"
+    api_port: int = 8000
+    webhook_rate_limit_per_minute: int = 100
+    dedup_ttl_seconds: int = 4 * 3600
+    # columnar webhook batches (ingestion/columnar.py) with the hashed
+    # dedup ring (ingestion/dedup.FingerprintRing); False = the per-alert
+    # dict path
+    ingest_columnar: bool = True
+    ingest_dedup_window: int = 32768
+    # per-tenant token-bucket admission with severity shedding on the
+    # columnar path (ingestion/admission.py), and its storm mode
+    ingest_admission: bool = True
+    admission_rate_per_sec: float = 2000.0
+    admission_burst: float = 4000.0
+    storm_enter_shed_ratio: float = 0.25
+    storm_exit_shed_ratio: float = 0.02
+    storm_dwell_s: float = 1.0
+    storm_eviction_rate_per_s: float = 500.0
+    storm_busy_rate_per_s: float = 50.0
+    storm_sample_every: int = 8
+    # past this many unsynced store-journal records a busy absorb()
+    # drains synchronously instead of yielding (rca/streaming.py)
+    ingest_max_journal_backlog: int = 8192
+    # circuit breaker around the SQLite persist and its spill journal
+    breaker_failure_threshold: int = 5
+    breaker_cooldown_s: float = 2.0
+    persist_spill_cap: int = 4096
+
+    # --- storage ---
+    db_path: str = "kaeg.sqlite"
+    graph_persist_path: str = ""
+
+    # --- tracing export (observability/otlp.py) ---
+    otlp_endpoint: str = ""
+    otel_service_name: str = "kaeg-tpu"
+
     evidence_time_window_minutes: int = 15
     max_log_lines: int = 1000
     max_metric_points: int = 500
+
+    # --- collector backends ---
+    # fake|kubernetes; "kubernetes" (collectors/live.py) is not ported
+    # yet and raises (ROADMAP item 4c)
+    cluster_backend: str = "fake"
+
+    # --- rca ---
+    # cpu|tpu|gnn: "tpu" is the rules scorer (kernels/rules_fold),
+    # "gnn" the learned one (kernels/gms and the serving ticks)
+    rca_backend: str = "tpu"
+    llm_provider: str = "none"                     # none|gemini|openai|ollama
+    llm_api_key: str = ""
+    llm_model: str = ""
+    # workflow verdict fetch of the snapshot path: "top" fetches only the
+    # per-incident verdict fields, "full" every matched rule
+    workflow_verdict_fields: str = "top"
+
+    # --- remediation / policy ---
+    remediation_enabled: bool = True
+    remediation_dry_run: bool = True
+    remediation_auto_approve_dev: bool = True
+    remediation_max_blast_radius: float = 50.0
+    verification_wait_seconds: int = 120
+    approval_timeout_seconds: int = 4 * 3600
+    remediation_max_scale_replicas: int = 10
+    remediation_compensation: bool = True
+    remediation_compensation_attempts: int = 2
+    # fenced workflow leases, the resumer sweep and its budget
+    workflow_lease_enabled: bool = True
+    workflow_lease_ttl_s: float = 60.0
+    workflow_resume_interval_s: float = 30.0
+    workflow_max_resumes: int = 5
+
+    # --- integrations ---
+    slack_webhook_url: str = ""
+    slack_channel: str = "#incidents"
+    jira_url: str = ""
+    jira_project: str = "OPS"
+    jira_user: str = ""
+    jira_token: str = ""
+
+    # --- observability (observability/scope.py) ---
+    scope_telemetry: bool = True
+    scope_flight_records: int = 256
+    scope_flight_dir: str = ""
+    flight_dump_keep: int = 64
+
+    # --- not ported yet: any value but the default raises ---
+    # the crash shield (ROADMAP item 6)
+    shield_enabled: bool = False
+    # graph-sharded and data-parallel serving meshes (ROADMAP item 9)
+    serve_graph_shards: int = 1
+    mesh_dp: int = 1
 
     # --- serving (rca/streaming.py) ---
     # max ticks in flight (dispatched but unfetched). Depth 1 = a
@@ -100,6 +195,12 @@ class Settings:
     # --- snapshot padding ladders (graph/snapshot.py; rungs in ladders.py)
     node_bucket_sizes: tuple = _ladders.NODE_BUCKET_SIZES
     incident_bucket_sizes: tuple = _ladders.INCIDENT_BUCKET_SIZES
+
+    @property
+    def environment(self) -> str:
+        """Normalized short environment name (dev|staging|uat|prod)."""
+        e = self.app_env.lower()
+        return {"development": "dev", "production": "prod"}.get(e, e)
 
 
 _ENV_PREFIX = "KAEG_"

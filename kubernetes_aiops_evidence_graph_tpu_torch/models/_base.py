@@ -10,13 +10,20 @@ store's runbook rows); the class attribute ``model_fields`` (field name →
 ``dataclasses.Field``); and ``model_validate``, which builds a model from a
 stored row, converting strings back to the field's enum, UUID or datetime
 as pydantic's validation does.
+
+Models built from a request body (``HypothesisFeedback``) also check their
+fields when constructed, as pydantic's lax mode does (``validate_fields``):
+a value of the wrong type raises ``TypeError`` or ``ValueError``, so the
+API answers 400 to the bodies the JAX package's API refuses.
+``Model.from_request`` drops the keys that name no field, as pydantic
+ignores them.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import typing
-from datetime import datetime
+from datetime import datetime, timezone
 from enum import Enum
 from uuid import UUID
 
@@ -59,6 +66,60 @@ def _coerce(value, hint):
     return value
 
 
+_TRUE = frozenset(("1", "on", "t", "true", "y", "yes"))
+_FALSE = frozenset(("0", "off", "f", "false", "n", "no"))
+
+
+def _lax(name: str, value, hint):
+    """``value`` as pydantic's lax mode takes it for the annotation
+    ``hint`` (bool, str, UUID, datetime, and their ``Optional``: the
+    field types of the request models); raises ``TypeError``/``ValueError``
+    where pydantic raises its ``ValidationError``."""
+    args = [a for a in typing.get_args(hint) if a is not type(None)]
+    if typing.get_origin(hint) is typing.Union and len(args) == 1:
+        if value is None:
+            return None
+        hint = args[0]
+    if value is None:
+        raise TypeError(f"{name}: a value is required, got None")
+    if hint is bool:
+        if isinstance(value, bool):
+            return value
+        if isinstance(value, (int, float)) and value in (0, 1):
+            return bool(value)
+        if isinstance(value, str) and value.lower() in _TRUE | _FALSE:
+            return value.lower() in _TRUE
+        raise ValueError(f"{name}: not a valid boolean: {value!r}")
+    if hint is str:
+        if isinstance(value, str):
+            return value
+        raise TypeError(f"{name}: not a string: {value!r}")
+    if hint is UUID:
+        if isinstance(value, UUID):
+            return value
+        if isinstance(value, str):
+            return UUID(value)
+        raise TypeError(f"{name}: not a UUID: {value!r}")
+    if hint is datetime:
+        if isinstance(value, datetime):
+            return value
+        if isinstance(value, (int, float)) and not isinstance(value, bool):
+            return datetime.fromtimestamp(value, tz=timezone.utc)
+        if isinstance(value, str):
+            return datetime.fromisoformat(value.replace("Z", "+00:00"))
+        raise TypeError(f"{name}: not a datetime: {value!r}")
+    raise TypeError(f"{name}: no request validation for {hint!r}")
+
+
+def validate_fields(obj) -> None:
+    """Check and convert every field of a dataclass model in place, as
+    pydantic's lax validation would (see ``_lax``)."""
+    hints = typing.get_type_hints(type(obj))
+    for f in dataclasses.fields(obj):
+        setattr(obj, f.name, _lax(f.name, getattr(obj, f.name),
+                                  hints[f.name]))
+
+
 class _FieldMap:
     """``Model.model_fields``: the dataclass fields by name, read off the
     class (a class attribute, as in pydantic)."""
@@ -81,6 +142,13 @@ class Model:
     def model_dump_json(self) -> str:
         """The ``mode="json"`` dump as compact JSON, as pydantic writes it."""
         return json.dumps(self.model_dump(mode="json"), separators=(",", ":"))
+
+    @classmethod
+    def from_request(cls, **body):
+        """The model from a request body's keys; keys that name no field
+        are dropped, as pydantic drops them."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in body.items() if k in names})
 
     @classmethod
     def model_validate(cls, data: dict):

@@ -14,7 +14,7 @@ from typing import Optional
 from uuid import UUID, uuid4
 
 from ..utils.timeutils import utcnow
-from ._base import Model, model
+from ._base import Model, model, validate_fields
 
 
 class HypothesisCategory(str, Enum):
@@ -109,3 +109,7 @@ class HypothesisFeedback(Model):
     feedback_notes: Optional[str] = None
     submitted_by: str = "unknown"
     submitted_at: datetime = field(default_factory=utcnow)
+
+    def __post_init__(self) -> None:
+        # a request body: refuse and convert its values as pydantic does
+        validate_fields(self)

@@ -44,6 +44,7 @@ from ..graph.schema import EntityKind, RelationKind
 from ..graph.snapshot import GraphSnapshot, build_snapshot, extract_node_features
 from ..graph.store import EvidenceGraphStore
 from ..kernels.rules_fold import rules_fold
+from ..observability import metrics as obs_metrics
 from ..ladders import (DELTA_BUCKETS as _DELTA_BUCKETS,
                        PAIR_WIDTH_BUCKETS as _PAIR_WIDTH_BUCKETS,
                        ROW_BUCKETS as _ROW_BUCKETS,
@@ -267,6 +268,12 @@ class StreamingScorer:
         # when set, staged feature rows are isfinite-checked (O(delta))
         # before they are copied into the resident state
         self.finite_delta_guard = False
+        # absorb(): busy yields, and the synchronous drains past the
+        # journal-backlog bound
+        self.absorb_busy = 0
+        self.absorb_sync_drains = 0
+        self._max_journal_backlog = int(
+            self.settings.ingest_max_journal_backlog)
         self._init_from_store()
 
     # -- device helpers -----------------------------------------------------
@@ -967,6 +974,44 @@ class StreamingScorer:
         self._inflight.append(self._tick_handles(out))
         return {"dispatched": True, "coalesced": False,
                 "inflight": len(self._inflight), "pending": 0}
+
+    def absorb(self) -> dict:
+        """Webhook-burst ingestion: drain the store journal and submit ONE
+        pipelined tick without fetching. The workflow calls this right
+        after graph ingest, so the incident's deltas ride the bounded
+        tick_async queue (coalescing under bursts) while the workflow's
+        host steps continue; the verdict boundary then pays a deferred
+        newest-tick fetch (``serve(newest=True)``). One lock acquisition
+        covers sync + submit. Non-blocking: when a caller-boundary tick or
+        fetch holds the serving state, absorb yields (``busy``) and the
+        deltas stay in the journal for that boundary's own sync — unless
+        the unsynced journal backlog exceeds
+        ``settings.ingest_max_journal_backlog``, when it drains
+        synchronously instead (counted)."""
+        if not self.serve_lock.acquire(blocking=False):
+            self.absorb_busy += 1
+            obs_metrics.SERVE_ABSORB_BUSY.inc()
+            backlog = self._journal_backlog()
+            if backlog <= self._max_journal_backlog:
+                return {"dispatched": False, "coalesced": False,
+                        "busy": True, "backlog": backlog}
+            self.absorb_sync_drains += 1
+            obs_metrics.SERVE_ABSORB_SYNC_DRAINS.inc()
+            self.serve_lock.acquire()
+        try:
+            self.sync()
+            return self._tick_async_locked()
+        finally:
+            self.serve_lock.release()
+
+    def _journal_backlog(self) -> int:
+        """Store-journal records not yet drained into the resident state."""
+        return max(int(self.store.journal_seq) - int(self._synced_seq), 0)
+
+    def serving_node_id(self, node_id: str, tenant: str = "default") -> str:
+        """A store-local node id in this scorer's slot space (the same id:
+        the multi-tenant pack that namespaces it is ROADMAP item 7)."""
+        return node_id
 
     def _supersede_inflight(self) -> None:
         """A fresh caller-boundary tick makes every queued result stale:

@@ -161,11 +161,11 @@ def test_settings_hold_only_what_the_port_reads(monkeypatch):
     monkeypatch.setenv("KAEG_INCIDENT_BUCKET_SIZES", "32,8")
     monkeypatch.setenv("KAEG_GNN_TICK_DMA", "true")
     monkeypatch.setenv("KAEG_GNN_FEATURE_QUANT", "int8")
-    monkeypatch.setenv("KAEG_MESH_DP", "4")
+    monkeypatch.setenv("KAEG_MESH_GRAPH", "4")
     monkeypatch.setenv("KAEG_LEARN_LR", "0.02")
     monkeypatch.setenv("KAEG_LEARN_STEPS", "7")
     monkeypatch.setenv("KAEG_LEARN_WEAK_LABELS", "false")
-    with pytest.warns(UserWarning, match="KAEG_MESH_DP: no such setting"):
+    with pytest.warns(UserWarning, match="KAEG_MESH_GRAPH: no such setting"):
         s = ts.load_settings()
     assert s.serve_pipeline_depth == 4 and s.incident_bucket_sizes == (8, 32)
     assert s.gnn_tick_dma is True and s.gnn_fused_tick is False
@@ -181,9 +181,10 @@ def test_settings_hold_only_what_the_port_reads(monkeypatch):
         "learn_sim_incidents", "learn_holdout_every", "learn_weak_labels",
         "learn_weak_confidence", "learn_mesh_shards", "learn_pallas_grads"}
     monkeypatch.setenv("KAEG_GNN_TICK_DMA", "0")
-    monkeypatch.delenv("KAEG_MESH_DP")
+    monkeypatch.delenv("KAEG_MESH_GRAPH")
     assert ts.load_settings().gnn_tick_dma is False
-    assert not hasattr(s, "mesh_dp")
+    assert not hasattr(s, "mesh_graph")
+    assert s.mesh_dp == 1 and s.rca_backend == "tpu"
     for field in ("gnn_pallas", "vmem_budget_bytes", "learn_checkpoint_dir"):
         with pytest.raises(TypeError):
             ts.load_settings(**{field: 1})
