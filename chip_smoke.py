@@ -126,8 +126,35 @@ the learned model's training, offline (``rca/train.py``) and online
    ``{"app": {...}}`` line: webhook → verdict p50/p95 (the port's SCOPE
    histogram), webhook → closed p50/p95, incidents/s, launches, ticks,
    the device time of the phase (profiler) a tick and its busy share,
-   beside the card's name and power limit;
-12. prints a ``{"gms_compare": {...}}`` line (the message pass split by
+   beside the card's name and power limit. Each run starts with
+   ``get_backend``'s memo empty and must build one backend per name it
+   uses (``backend_builds``; the learned run loads its checkpoint once for
+   the resident scorer and once for the verdict backend), and its
+   coalesced ticks read from the scorer and from ``/metrics`` must agree
+   (``coalesced_ticks``, ``storm_coalesced_ticks``);
+12. the ``kaeg-sim`` CLI (``run_cli``): ``simulator.cli.main(["run", ...])``
+   with each of the ten scenarios once, 35,000 pods (config 3's cluster),
+   seed 0, both backends, on the card by default; ``rules_fold`` must
+   launch exactly once and each incident's ``tpu_top1`` must equal its
+   ``cpu_top1`` (rule, and confidence within 1e-3); a ``{"cli": {...}}``
+   line with the report's ``graph`` section, the run's seconds and B1's
+   device ms;
+13. the blast route (``blast_phase``) over HTTP on the store of phase
+   11's timed rules run (16,621 topology nodes plus 100 incidents'
+   evidence, node bucket 65,536) before that app stops: 10 incidents at
+   ``hops=1`` and ``hops=3``, each map equal to ``blast_propagation`` on
+   the CPU (ids in order, scores within 1e-6), the reach mask on the card
+   equal to a CPU copy's, the propagated scores within 1e-6 of it, two
+   calls equal bit for bit, 404 for an unknown incident; a
+   ``{"blast": {...}}`` line with the host ms per call and the device ms
+   of the k-hop and propagation part;
+14. the app over the live cluster backend (``run_live``):
+   ``AiopsApp(LiveClusterBackend(...))`` on the card, ``rca_backend="tpu"``,
+   against an in-process K8s/Prometheus/Loki server with canned answers
+   (``LIVE_TABLE``); one webhook for ``payments/checkout`` polled until
+   its workflow closed it; ``rules_fold`` must launch and the hypotheses
+   be the resident scorer's; a ``{"live": {...}}`` line;
+15. prints a ``{"gms_compare": {...}}`` line (the message pass split by
    kernel at config 3, forward and dh, and config 4; the hub probe; the
    learned forward, the train step, the ticks per tier, each split by
    kernel, and learned events/s; ``grad_w`` per launch at the trainer's
@@ -2203,10 +2230,36 @@ def checked_serve(scorer, settings, backend: str, dev) -> dict:
     return check
 
 
-def run_app(backend: str, dev, num_pods: int = 10_000,
-            num_incidents: int = 100, batch: int = 10, seed: int = 0,
-            deadline_s: float = APP_DEADLINE_S, verify: bool = False,
-            **overrides) -> dict:
+@contextlib.contextmanager
+def counted_checkpoint_loads():
+    """Count the learned checkpoint's loads inside (the resident scorer's
+    and the verdict backend's both go through
+    ``gnn_backend.load_validated_checkpoint``); yields a one-item list."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn_backend
+    real = gnn_backend.load_validated_checkpoint
+    loads = [0]
+
+    def counted(path):
+        loads[0] += 1
+        return real(path)
+
+    gnn_backend.load_validated_checkpoint = counted
+    try:
+        yield loads
+    finally:
+        gnn_backend.load_validated_checkpoint = real
+
+
+def run_app(backend: str, dev, **kw) -> dict:
+    """``served_app`` with the checkpoint's loads counted."""
+    with counted_checkpoint_loads() as loads:
+        return served_app(backend, dev, loads, **kw)
+
+
+def served_app(backend: str, dev, loads: list, num_pods: int = 10_000,
+               num_incidents: int = 100, batch: int = 10, seed: int = 0,
+               deadline_s: float = APP_DEADLINE_S, verify: bool = False,
+               after=None, **overrides) -> dict:
     """The port's main path through its own entry point: ``AiopsApp`` on
     ``dev`` serving the config-4 world (``num_pods`` pods, the cluster's
     topology synced into the app's evidence graph as a deployment holds
@@ -2224,7 +2277,15 @@ def run_app(backend: str, dev, num_pods: int = 10_000,
     and the served top-1 that later incidents' evidence changed are
     counted (a learned verdict reads three hops of the graph).
     ``verify=True``: one workflow slot and every serve held against the
-    snapshot path at that moment (``checked_serve``)."""
+    snapshot path at that moment (``checked_serve``).
+
+    Each run starts with ``get_backend``'s memo empty, as a new process
+    does: it must build one backend per name it uses (``backend_builds``),
+    and the learned run loads its checkpoint once for the resident scorer
+    and once for the verdict backend (``checkpoint_loads``). The coalesced
+    ticks are read from the scorer and from ``/metrics``, which must agree.
+    ``after(app, base)``, when given, runs on the served app once every
+    incident is closed; its result is the record's ``after``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from kubernetes_aiops_evidence_graph_tpu_torch.app import AiopsApp
@@ -2243,6 +2304,10 @@ def run_app(backend: str, dev, num_pods: int = 10_000,
     from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
         StreamingScorer)
 
+    from kubernetes_aiops_evidence_graph_tpu_torch import rca
+
+    rca._INSTANCES.clear()
+    builds_before = rca.builds
     t0 = time.perf_counter()
     cluster, alerts = app_alerts(num_pods, num_incidents, seed)
     settings = load_settings(api_port=0, db_path=":memory:",
@@ -2305,6 +2370,9 @@ def run_app(backend: str, dev, num_pods: int = 10_000,
             if on_card:
                 torch.cuda.synchronize()
         counts = read_counts()
+        builds = {"built": rca.builds - builds_before,
+                  "names": sorted(k[0] for k in rca._INSTANCES),
+                  "checkpoint_loads": loads[0]}
         metrics_after = _http(base, "/metrics").decode()
         served = {}
         for iid in posted_at:
@@ -2343,6 +2411,27 @@ def run_app(backend: str, dev, num_pods: int = 10_000,
         if on_card and counts[kernel] < 1:
             raise AssertionError(f"app {backend}: {kernel} never launched")
         ticks = scorer.dispatches
+        if builds["names"] != [backend] or builds["built"] != 1:
+            raise AssertionError(f"app {backend}: get_backend built "
+                                 f"{builds['built']} backends for the names "
+                                 f"{builds['names']}, want one {backend}")
+        if builds["checkpoint_loads"] != (2 if backend == "gnn" else 0):
+            raise AssertionError(f"app {backend}: the checkpoint loaded "
+                                 f"{builds['checkpoint_loads']} times, want "
+                                 f"once for the scorer and once for the "
+                                 f"verdict backend")
+        coalesced = {
+            "scorer": scorer.coalesced_ticks,
+            "metrics": _metric_total(
+                metrics_after, "aiops_serve_coalesced_ticks_total")
+            - _metric_total(metrics_before,
+                            "aiops_serve_coalesced_ticks_total"),
+            "storm_scorer": scorer.storm_coalesced_ticks}
+        if coalesced["metrics"] != coalesced["scorer"]:
+            raise AssertionError(f"app {backend}: /metrics counted "
+                                 f"{coalesced['metrics']} coalesced ticks, "
+                                 f"the scorer {coalesced['scorer']}")
+        after_res = after(app, base) if after is not None else None
         latency = histogram_percentiles(
             hist, lat_before, histogram_counts(hist, backend=backend),
             (0.5, 0.95))
@@ -2414,12 +2503,407 @@ def run_app(backend: str, dev, num_pods: int = 10_000,
             "served_top1_changed_by_later_incidents": len(changed),
             "top1_differs_from_cpu_oracle": cpu_differs,
             "scorer": type(scorer).__name__,
-            "coalesced_ticks": scorer.coalesced_ticks,
+            "coalesced_ticks": coalesced["scorer"],
+            "coalesced_ticks_metrics": coalesced["metrics"],
+            "storm_coalesced_ticks": coalesced["storm_scorer"],
+            "backend_builds": builds["built"],
+            "backend_names": builds["names"],
+            "checkpoint_loads": builds["checkpoint_loads"],
             "absorb_busy": scorer.absorb_busy,
+            "after": after_res,
         }
     finally:
         app.stop()
     log(f"app {backend}: {res}")
+    return res
+
+
+def run_cli(dev, num_pods: int = 35_000) -> dict:
+    """The ``kaeg-sim`` CLI's ``run`` as a user calls it
+    (``simulator.cli.main``), on ``dev``: each of the ten scenarios
+    injected once into a ``num_pods``-pod cluster (config 3's size), seed
+    0, both backends. ``rules_fold`` must launch exactly once (the tpu
+    backend's one pass), and every incident's ``tpu_top1`` must equal its
+    ``cpu_top1``: the rule, and the confidence within 1e-3 (the contract
+    of tests/test_cli.py). Returns the report's ``graph`` section, the
+    run's seconds, the launches and, on the card, B1 timed on the inputs
+    of the CLI's pass (``kernel_timing``: profiler device time, bound)."""
+    import io
+
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch import rca
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator import (
+        SCENARIOS, cli)
+    argv = ["run", *(a for name in sorted(SCENARIOS) for a in ("-s", name)),
+            "--pods", str(num_pods), "--seed", "0", "--backend", "both"]
+    on_card = dev.type == "cuda"
+    if not on_card:
+        argv += ["--device", str(dev)]
+    printed = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(argv)
+        if on_card:
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"cli: run exited {rc}")
+    report = json.loads(printed.getvalue())
+    if on_card and counts["rules_fold"] != 1:
+        raise AssertionError(f"cli: rules_fold launched {counts['rules_fold']}"
+                             f" times, want once")
+    if len(report["incidents"]) != len(SCENARIOS):
+        raise AssertionError(f"cli: {len(report['incidents'])} incidents "
+                             f"for {len(SCENARIOS)} scenarios")
+    differ = [(e["scenario"], e["tpu_top1"], e["cpu_top1"])
+              for e in report["incidents"]
+              if e["tpu_top1"]["rule"] != e["cpu_top1"]["rule"]
+              or abs(e["tpu_top1"]["confidence"]
+                     - e["cpu_top1"]["confidence"]) > 1e-3]
+    if differ:
+        raise AssertionError(f"cli: tpu top-1 differs from the CPU oracle "
+                             f"{differ}")
+    b1 = None
+    if on_card:
+        # the memoized backend the CLI scored through still holds its
+        # pass's snapshot and device tensors
+        backend = rca.get_backend("tpu", device=dev)
+        snap = backend._cache[0]
+        if snap.num_nodes != report["graph"]["nodes"]:
+            raise AssertionError("cli: the backend holds another snapshot")
+        args = (*backend.device_arrays(snap),
+                torch.zeros(snap.padded_incidents, device=dev))
+        with kept_counts():
+            b1 = kernel_timing(args, backend.prepared(snap).pair_width)
+    res = {"pods": report["pods"], "graph": report["graph"],
+           "incidents": len(report["incidents"]),
+           "top1_equals_expected_rule": sum(
+               e["tpu_top1"]["rule"] == e["expected_rule"]
+               for e in report["incidents"]),
+           "seconds": wall, "launches": counts,
+           "b1_device_ms": b1["ms"] if b1 else None,
+           "b1": {k: b1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "ms_per_call", "timed_by")} if b1 else None}
+    log(f"cli: {res}")
+    return res
+
+
+BLAST_INCIDENTS = 10
+"""Incidents of the app's store whose blast map the blast phase checks."""
+
+
+def blast_phase(app, base: str, num: int = BLAST_INCIDENTS) -> dict:
+    """The blast route over HTTP on a served app's store
+    (``GET /api/v1/incidents/{id}/blast-propagation``), for ``num`` of its
+    incidents at ``hops=1`` and ``hops=3``. Per incident and hops: two
+    calls answer the same map; the map equals ``blast_propagation`` on the
+    CPU (the same ids in the same order, scores within 1e-6, the same
+    ``reached_nodes``); on the route's snapshot, ``k_hop_reach``'s mask on
+    the app's device equals the one on a CPU copy of the edge arrays
+    exactly, and ``propagate_labels`` is within 1e-6 of its CPU copy, both
+    equal bit for bit over two calls. An unknown incident answers 404.
+    Returns the host ms per route call and the device ms (profiler) of the
+    k-hop and propagation part."""
+    import urllib.error
+
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.ops.propagate import (
+        k_hop_reach, propagate_labels)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import blast
+    dev = app.device
+    iids = [nid.split(":", 1)[1] for nid in app.store.incident_ids()[:num]]
+    if len(iids) != num:
+        raise AssertionError(f"blast: {len(iids)} incidents in the store")
+    calls, wall, reached = 0, 0.0, {}
+    for hops in (1, 3):
+        for iid in iids:
+            path = f"/api/v1/incidents/{iid}/blast-propagation?hops={hops}"
+            t0 = time.perf_counter()
+            got = _http(base, path)
+            again = _http(base, path)
+            wall += time.perf_counter() - t0
+            calls += 2
+            want = blast.blast_propagation(app.store, iid, app.settings,
+                                           hops=hops, device="cpu")
+            what = f"blast {iid} hops={hops}"
+            if got != again:
+                raise AssertionError(f"{what}: two calls differ")
+            if (got["reached_nodes"] != want["reached_nodes"]
+                    or [b["id"] for b in got["blast"]]
+                    != [b["id"] for b in want["blast"]]):
+                raise AssertionError(f"{what}: the map differs from the "
+                                     f"CPU's ({got} vs {want})")
+            err = max((abs(a["score"] - b["score"]) for a, b in zip(
+                got["blast"], want["blast"])), default=0.0)
+            # both sides are rounded to 6 decimals: 1e-6 apart at most,
+            # and the float of that difference may exceed 1e-6 by an ulp
+            if err > 1e-6 + 1e-12 or not got["blast"]:
+                raise AssertionError(f"{what}: scores {err:.3g} from the "
+                                     f"CPU's, or an empty map")
+            reached.setdefault(hops, []).append(got["reached_nodes"])
+    try:
+        _http(base, f"/api/v1/incidents/{uuid.UUID(int=0xbad)}"
+                    "/blast-propagation")
+        raise AssertionError("blast: an unknown incident did not answer 404")
+    except urllib.error.HTTPError as exc:
+        if exc.code != 404:
+            raise
+
+    snap = blast._snapshot(app.store, app.settings)
+    pn = snap.padded_nodes
+
+    def edges(d):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                     for a in (snap.edge_src, snap.edge_dst, snap.edge_mask))
+
+    def part(arrays, d, seed: int, hops: int):
+        reach = k_hop_reach(torch.tensor([seed], dtype=torch.int32, device=d),
+                            torch.ones(1, device=d), *arrays, num_nodes=pn,
+                            hops=hops)
+        x = torch.zeros(pn, device=d)
+        x[seed] = 1.0
+        return reach, propagate_labels(x, *arrays, num_nodes=pn)
+
+    on_dev, on_cpu = edges(dev), edges("cpu")
+    seeds = [snap.node_ids.index(f"incident:{i}") for i in iids]
+    score_err, bit_equal_cpu = 0.0, True
+    for hops in (1, 3):
+        for seed in seeds:
+            r1, s1 = part(on_dev, dev, seed, hops)
+            r2, s2 = part(on_dev, dev, seed, hops)
+            rc, sc = part(on_cpu, "cpu", seed, hops)
+            if not (torch.equal(r1, r2) and torch.equal(s1, s2)):
+                raise AssertionError(f"blast hops={hops}: two calls on "
+                                     f"{dev} differ")
+            if not torch.equal(r1.cpu(), rc):
+                raise AssertionError(f"blast hops={hops}: the reach mask "
+                                     f"differs from the CPU copy's")
+            score_err = max(score_err, float((s1.cpu() - sc).abs().max()))
+            bit_equal_cpu &= torch.equal(s1.cpu(), sc)
+    if score_err > 1e-6:
+        raise AssertionError(f"blast: propagated scores {score_err:.3g} "
+                             f"from the CPU copy's")
+    dev_ms = (device_ms(lambda: part(on_dev, dev, seeds[0], 3))
+              if dev.type == "cuda" else None)
+    res = {"incidents": num, "padded_nodes": pn,
+           "padded_edges": snap.padded_edges,
+           "live_edges": int((snap.edge_mask > 0).sum()),
+           "route_calls": calls, "ms_per_call": wall / calls * 1e3,
+           "reached_nodes": {h: [min(r), max(r)] for h, r in reached.items()},
+           "scores_max_abs_err_vs_cpu": score_err,
+           "scores_bit_equal_cpu": bit_equal_cpu,
+           "khop_propagate_device_ms_hops3": dev_ms}
+    log(f"blast: {res}")
+    return res
+
+
+# -- the live cluster backend against an in-process K8s/Prometheus/Loki ------
+# (a copy of the canned data and handler of tests/test_live_backend.py: this
+# script imports nothing of the tests)
+
+LIVE_NOW = "2026-07-29T12:00:00Z"
+LIVE_PODS = {"items": [{
+    "metadata": {"name": "checkout-abc12-x1", "labels": {"app": "checkout"},
+                 "ownerReferences": [{"kind": "ReplicaSet",
+                                      "name": "checkout-abc12"}]},
+    "spec": {"nodeName": "node-1"},
+    "status": {
+        "phase": "Running", "startTime": "2026-07-29T11:00:00Z",
+        "conditions": [{"type": "Ready", "status": "False",
+                        "lastTransitionTime": "2026-07-29T11:50:00Z"}],
+        "containerStatuses": [{
+            "restartCount": 7, "ready": False,
+            "state": {"waiting": {"reason": "CrashLoopBackOff"}},
+            "lastState": {"terminated": {"reason": "Error"}},
+        }],
+    },
+}]}
+LIVE_DEPLOYMENTS = {"items": [{
+    "metadata": {"name": "checkout", "labels": {"app": "checkout"},
+                 "annotations": {"deployment.kubernetes.io/revision": "4"}},
+    "spec": {"replicas": 3,
+             "template": {"spec": {"containers": [{"image": "reg/app:v4"}]}}},
+    "status": {"readyReplicas": 1,
+               "conditions": [{"type": "Progressing",
+                               "lastUpdateTime": "2026-07-29T11:55:00Z"}]},
+}]}
+LIVE_REPLICASETS = {"items": [
+    {"metadata": {"name": "checkout-abc12",
+                  "creationTimestamp": "2026-07-29T11:55:00Z",
+                  "annotations": {"deployment.kubernetes.io/revision": "4"},
+                  "ownerReferences": [{"kind": "Deployment",
+                                       "name": "checkout"}]},
+     "spec": {"template": {"spec": {"containers": [{"image": "reg/app:v4"}]}}}},
+    {"metadata": {"name": "checkout-old11",
+                  "creationTimestamp": "2026-07-20T00:00:00Z",
+                  "annotations": {"deployment.kubernetes.io/revision": "3"},
+                  "ownerReferences": [{"kind": "Deployment",
+                                       "name": "checkout"}]},
+     "spec": {"template": {"spec": {"containers": [{"image": "reg/app:v3"}]}}}},
+]}
+LIVE_NODES = {"items": [{
+    "metadata": {"name": "node-1"},
+    "status": {"conditions": [{"type": "Ready", "status": "True"},
+                              {"type": "MemoryPressure", "status": "False"}]},
+}]}
+LIVE_EVENTS = {"items": [{
+    "metadata": {"creationTimestamp": LIVE_NOW},
+    "involvedObject": {"name": "checkout-abc12-x1"},
+    "reason": "BackOff", "type": "Warning", "message": "Back-off restarting",
+    "lastTimestamp": LIVE_NOW,
+}]}
+LIVE_LOKI = {"data": {"result": [{"values": [
+    ["1", "ERROR panic: connection refused"],
+    ["2", "all fine"],
+]}]}}
+LIVE_PROM = {"data": {"result": [{"value": ["1753790400", "93.5"]}]}}
+LIVE_PROM_RANGE = {"data": {"result": [
+    {"metric": {"pod": "checkout-abc12-x1"},
+     "values": [["1753790100", "80"], ["1753790200", "+Inf"],
+                ["1753790400", "90"]]},
+    {"metric": {"pod": "checkout-abc12-x2"},
+     "values": [["1753790150", "82"], ["1753790300", "NaN"],
+                ["1753790350", "88"]]},
+]}}
+LIVE_TABLE = {
+    "/api/v1/namespaces/payments/pods": LIVE_PODS,
+    "/apis/apps/v1/namespaces/payments/deployments": LIVE_DEPLOYMENTS,
+    "/apis/apps/v1/namespaces/payments/replicasets": LIVE_REPLICASETS,
+    "/api/v1/nodes": LIVE_NODES,
+    "/api/v1/namespaces/payments/events": LIVE_EVENTS,
+    "/api/v1/namespaces/payments/configmaps": {"items": []},
+    "/apis/autoscaling/v2/namespaces/payments/horizontalpodautoscalers":
+        {"items": []},
+    "/loki/api/v1/query_range": LIVE_LOKI,
+    "/api/v1/query": LIVE_PROM,
+    "/api/v1/query_range": LIVE_PROM_RANGE,
+}
+"""GET path -> JSON answer; any other GET answers ``{"items": []}``."""
+
+
+def live_server():
+    """The canned K8s/Prometheus/Loki server on 127.0.0.1 (a thread of
+    this process): GETs answer from ``LIVE_TABLE``, writes answer 200 and
+    are recorded. Returns (server, base URL, the list of writes)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from urllib.parse import urlparse
+    writes: list = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _record(self, method):
+            length = int(self.headers.get("Content-Length") or 0)
+            body = json.loads(self.rfile.read(length)) if length else {}
+            writes.append((method, urlparse(self.path).path, body))
+            out = b"{}"
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(out)))
+            self.end_headers()
+            self.wfile.write(out)
+
+        def do_DELETE(self):
+            self._record("DELETE")
+
+        def do_PATCH(self):
+            self._record("PATCH")
+
+        def do_POST(self):
+            self._record("POST")
+
+        def do_GET(self):
+            payload = LIVE_TABLE.get(urlparse(self.path).path)
+            body = json.dumps(payload if payload is not None
+                              else {"items": []}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True,
+                     name="live-canned").start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}", writes
+
+
+def run_live(dev, deadline_s: float = APP_DEADLINE_S) -> dict:
+    """``AiopsApp`` on ``dev`` over ``LiveClusterBackend`` (the live
+    K8s/Prometheus/Loki backend) pointed at the canned server, with
+    ``rca_backend="tpu"``: one Alertmanager webhook for the canned
+    ``payments/checkout`` service, its ``/status`` polled until the
+    workflow closed it (fails past ``deadline_s``). ``rules_fold`` must
+    have launched, and the hypotheses must be the resident scorer's (the
+    ``streaming`` mode, top-1 equal to the scorer's own serve)."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.app import AiopsApp
+    from kubernetes_aiops_evidence_graph_tpu_torch.collectors.live import (
+        LiveClusterBackend)
+    from kubernetes_aiops_evidence_graph_tpu_torch.config import load_settings
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import RULES
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
+        StreamingScorer)
+    srv, url, writes = live_server()
+    settings = load_settings(api_port=0, db_path=":memory:",
+                             remediation_dry_run=False,
+                             verification_wait_seconds=0, rca_backend="tpu")
+    cluster = LiveClusterBackend(settings, k8s_url=url, k8s_token="smoke-token",
+                                 prometheus_url=url, loki_url=url)
+    app = AiopsApp(cluster, settings, device=dev)
+    try:
+        base = f"http://127.0.0.1:{app.start(host='127.0.0.1')}"
+        reset_counts()
+        t0 = time.perf_counter()
+        out = _http(base, "/api/v1/webhooks/alertmanager", {"alerts": [{
+            "status": "firing",
+            "labels": {"alertname": "PodCrashLooping", "namespace": "payments",
+                       "service": "checkout", "severity": "critical"},
+            "annotations": {"summary": "checkout is crashlooping"}}]})
+        if len(out["created"]) != 1:
+            raise AssertionError(f"live: the webhook created {out}")
+        iid = out["created"][0]
+        while True:
+            st = _http(base, f"/api/v1/incidents/{iid}/status")
+            if st["failed"] or st["state"] == "failed":
+                raise AssertionError(f"live: workflow failed: {st['failed']}")
+            if "close_incident" in st["completed"]:
+                break
+            if time.perf_counter() - t0 > deadline_s:
+                raise AssertionError(f"live: not closed within {deadline_s} s")
+            time.sleep(0.01)
+        wall = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts = read_counts()
+        if dev.type == "cuda" and counts["rules_fold"] < 1:
+            raise AssertionError("live: rules_fold never launched")
+        gen = st["steps"]["generate_hypotheses"]["result"]
+        hyps = _http(base, f"/api/v1/incidents/{iid}/hypotheses")["hypotheses"]
+        scorer = app.worker.scorer
+        if gen["mode"] != "streaming" or type(scorer) is not StreamingScorer:
+            raise AssertionError(f"live: scored by the {gen['mode']} path "
+                                 f"({type(scorer).__name__})")
+        with kept_counts():
+            raw = scorer.serve()
+        row = list(raw["incident_ids"]).index(f"incident:{iid}")
+        top = (RULES[int(raw["top_rule_index"][row])].id
+               if raw["any_match"][row] else "unknown")
+        if not hyps or hyps[0]["rule_id"] != top:
+            raise AssertionError(f"live: hypotheses {hyps[:1]} are not the "
+                                 f"resident scorer's ({top})")
+        res = {"seconds_to_closed": wall, "launches": counts,
+               "top_rule": top, "hypotheses": len(hyps),
+               "status": _http(base, f"/api/v1/incidents/{iid}")["status"],
+               "k8s_writes": [(m, p) for m, p, _b in writes]}
+    finally:
+        app.stop()
+        srv.shutdown()
+        srv.server_close()
+    log(f"live: {res}")
     return res
 
 
@@ -2611,11 +3095,21 @@ def main(argv: list[str]) -> int:
                    "offline_train": offline["launches"],
                    "config4_online_learner": online["launches"]}
 
-    # -- 11. the app: webhooks to closed incidents, both backends ----------
-    app_runs = {b: run_app(b, dev) for b in ("tpu", "gnn")}
+    # -- 11. the app: webhooks to closed incidents, both backends; 13. the
+    # blast route on the timed rules run's store, before that app stops --
+    app_runs = {"tpu": run_app("tpu", dev, after=blast_phase),
+                "gnn": run_app("gnn", dev)}
+    blast = app_runs["tpu"]["after"]
     app_checks = {b: run_app(b, dev, verify=True) for b in ("tpu", "gnn")}
     app_paths = {f"app_{b}": r["launches"] for b, r in app_runs.items()}
     rules_learned.update({k: c["rules_fold"] for k, c in app_paths.items()})
+
+    # -- 12. the kaeg-sim CLI at config 3's cluster size -------------------
+    cli_run = run_cli(dev)
+    # -- 14. the app over the live cluster backend (canned K8s server) ----
+    live = run_live(dev)
+    rules_learned["cli"] = cli_run["launches"]["rules_fold"]
+    rules_learned["live_app"] = live["launches"]["rules_fold"]
 
     kernels = [{
         "name": "rules_fold", "route": "cuda",
@@ -2750,6 +3244,11 @@ def main(argv: list[str]) -> int:
             "config4_online_learner": {k: online["grad_w"][k] for k in (
                 "ms_per_launch", "bound_ms", "launches")}},
     })
+    log(f"cli ({smi}): {cli_run['seconds']:.2f} s at {cli_run['pods']} pods, "
+        f"graph {cli_run['graph']}, B1 {cli_run['b1_device_ms']} device ms; "
+        f"blast: {blast['ms_per_call']:.3f} ms a route call, "
+        f"{blast['khop_propagate_device_ms_hops3']} device ms (hops 3); "
+        f"live: closed in {live['seconds_to_closed']:.2f} s")
     for b, r in app_runs.items():
         log(f"app {b} ({smi}): {r['incidents_per_s']:.2f} incidents/s, "
             f"webhook->verdict {r['webhook_to_verdict_s']}, webhook->closed "
@@ -2849,10 +3348,16 @@ def main(argv: list[str]) -> int:
             "launches", "ticks", "device_ms", "device_ms_per_tick",
             "device_busy_share", "served_top1_changed_by_later_incidents",
             "top1_differs_from_cpu_oracle", "coalesced_ticks",
+            "coalesced_ticks_metrics", "storm_coalesced_ticks",
+            "backend_builds", "backend_names", "checkpoint_loads",
             "absorb_busy", "world_s")} for b, r in app_runs.items()},
         "verify": {b: {k: r[k] for k in (
             "checked_serves", "served_vs_snapshot_max_abs_err", "launches",
-            "wall_s")} for b, r in app_checks.items()}}}))
+            "backend_builds", "checkpoint_loads", "wall_s")}
+            for b, r in app_checks.items()}}}))
+    print(json.dumps({"cli": {"card": smi, **cli_run}}))
+    print(json.dumps({"blast": {"card": smi, **blast}}))
+    print(json.dumps({"live": {"card": smi, **live}}))
     print(json.dumps({"digests": DIGESTS}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

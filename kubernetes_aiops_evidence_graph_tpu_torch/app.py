@@ -442,10 +442,10 @@ class AiopsApp:
 
 
 def main() -> None:  # pragma: no cover - manual entrypoint
-    """Serve the platform on the CUDA device with the simulated cluster.
-    KAEG_CLUSTER_BACKEND=kubernetes (the live K8s/Prometheus/Loki source)
-    is ROADMAP item 4c and KAEG_NUM_PROCESSES > 1 (a multi-host process
-    group) item 9: both raise."""
+    """Serve the platform on the CUDA device. KAEG_CLUSTER_BACKEND selects
+    the evidence source (fake = hermetic demo cluster, kubernetes = live
+    K8s/Prometheus/Loki, collectors/live.py); KAEG_NUM_PROCESSES > 1 (a
+    multi-host process group) is ROADMAP item 9 and raises."""
     import os
     nproc = int(os.environ.get("KAEG_NUM_PROCESSES", "1") or 1)
     if nproc > 1:
@@ -454,11 +454,11 @@ def main() -> None:  # pragma: no cover - manual entrypoint
             "(parallel/multihost.py) is not ported yet: ROADMAP item 9")
     settings = get_settings()
     if settings.cluster_backend == "kubernetes":
-        raise NotImplementedError(
-            "cluster_backend='kubernetes': the live cluster backend "
-            "(collectors/live.py) is not ported yet: ROADMAP item 4c")
-    from .simulator import generate_cluster
-    cluster = generate_cluster(num_pods=200, seed=0)
+        from .collectors.live import LiveClusterBackend
+        cluster: Any = LiveClusterBackend(settings)
+    else:
+        from .simulator import generate_cluster
+        cluster = generate_cluster(num_pods=200, seed=0)
     app = AiopsApp(cluster, settings)
     port = app.start()
     print(f"kaeg serving on :{port} (Ctrl-C to stop)")

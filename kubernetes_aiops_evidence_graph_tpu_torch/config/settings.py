@@ -76,9 +76,11 @@ class Settings:
     max_metric_points: int = 500
 
     # --- collector backends ---
-    # fake|kubernetes; "kubernetes" (collectors/live.py) is not ported
-    # yet and raises (ROADMAP item 4c)
+    # fake|kubernetes: "kubernetes" is the live K8s API + Prometheus +
+    # Loki backend of collectors/live.py (app.main)
     cluster_backend: str = "fake"
+    prometheus_url: str = "http://localhost:9090"
+    loki_url: str = "http://localhost:3100"
 
     # --- rca ---
     # cpu|tpu|gnn: "tpu" is the rules scorer (kernels/rules_fold),

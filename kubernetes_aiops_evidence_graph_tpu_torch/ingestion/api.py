@@ -11,10 +11,9 @@ the card is. The served entrypoint is
 `python -m kubernetes_aiops_evidence_graph_tpu_torch.serve`.
 
 The port's copy of the JAX package's API: the same routes, bodies and
-status codes, with two differences. Request bodies are checked by the
-dataclass models' own validation (a ``TypeError``/``ValueError`` answers
-400 where pydantic's ``ValidationError`` did), and the blast-propagation
-route answers 501 until ``rca/blast.py`` is ported (ROADMAP item 5).
+status codes. Request bodies are checked by the dataclass models' own
+validation (a ``TypeError``/``ValueError`` answers 400 where pydantic's
+``ValidationError`` did), and the blast map runs on the app's device.
 """
 from __future__ import annotations
 
@@ -349,12 +348,23 @@ class ApiHandler(BaseHTTPRequestHandler):
 
     @route("GET", r"/api/v1/incidents/(?P<incident_id>[0-9a-f-]+)/blast-propagation")
     def incident_blast_propagation(self, incident_id: str):
-        """The device blast map (k-hop reach + label propagation) is not
-        ported yet: 501, never a made-up map."""
-        self._json(501, {"error": "blast propagation is not ported yet "
-                                  "(ROADMAP item 5: ops/propagate.py, "
-                                  "rca/blast.py)",
-                         "incident_id": incident_id})
+        """Device-computed blast map: k-hop reach bound + label-propagation
+        ranking over the tensorized graph (rca/blast.py), on the app's
+        device."""
+        from ..rca.blast import blast_propagation
+        out = blast_propagation(
+            self.app.store, incident_id,
+            settings=self.app.settings,
+            hops=int(self.query.get("hops", 3)),
+            iterations=int(self.query.get("iterations", 3)),
+            top_k=int(self.query.get("top_k", 25)),
+            device=self.app.device,
+        )
+        if out is None:
+            self._json(404, {"error": "incident not in graph",
+                             "incident_id": incident_id})
+            return
+        self._json(200, out)
 
     @route("GET", r"/api/v1/incidents/(?P<incident_id>[0-9a-f-]+)/evidence")
     def incident_evidence(self, incident_id: str):

@@ -33,7 +33,8 @@ per-tick trace context through the entire hot path, with three pillars:
 The port's copy keeps the host parts only: the JAX package's roofline
 drift model prices the live tick's jaxpr (``_Roofline``/``ROOFLINE``);
 its counterpart over the port's kernels is ROADMAP item 8, and so are
-the scorers' TickSpan marks and their ``STORM_FLAG`` coalescing. Here
+the scorers' TickSpan marks and their ``note_coalesced`` calls (the
+scorers coalesce on ``STORM_FLAG`` and count it on ``/metrics``). Here
 the ingestion edge and the workflow feed ``SCOPE``, spans and the flight
 ring.
 

@@ -234,21 +234,24 @@ class CudaRcaBackend:
 
     def __init__(self, device: "str | torch.device | None" = None) -> None:
         self.device = resolve_device(device)
-        self._cached_snapshot: GraphSnapshot | None = None  # strong ref
-        self._device_args: tuple | None = None
-        self._batch: DeviceBatch | None = None
+        # (snapshot, batch, device args) of the last snapshot loaded, one
+        # tuple replaced whole: get_backend shares one instance between
+        # the workflow's step threads, so a reader never pairs one
+        # snapshot with another's tensors. The snapshot is a strong ref.
+        self._cache: tuple | None = None
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _load(self, snapshot: GraphSnapshot) -> tuple[DeviceBatch, tuple, float]:
-        if self._cached_snapshot is snapshot and self._device_args is not None:
-            return self._batch, self._device_args, 0.0
+        cache = self._cache
+        if cache is not None and cache[0] is snapshot:
+            return cache[1], cache[2], 0.0
         t0 = time.perf_counter()
         batch = prepare_batch(snapshot)
         args = tuple(self._to_device(a) for a in (
             batch.features, batch.ev_idx, batch.ev_cnt, batch.ev_pair_slot))
-        self._cached_snapshot, self._batch, self._device_args = snapshot, batch, args
+        self._cache = (snapshot, batch, args)
         return batch, args, time.perf_counter() - t0
 
     def dispatch(self, snapshot: GraphSnapshot,

@@ -45,6 +45,7 @@ from ..graph.snapshot import GraphSnapshot, build_snapshot, extract_node_feature
 from ..graph.store import EvidenceGraphStore
 from ..kernels.rules_fold import rules_fold
 from ..observability import metrics as obs_metrics
+from ..observability import scope as obs_scope
 from ..ladders import (DELTA_BUCKETS as _DELTA_BUCKETS,
                        PAIR_WIDTH_BUCKETS as _PAIR_WIDTH_BUCKETS,
                        ROW_BUCKETS as _ROW_BUCKETS,
@@ -254,6 +255,7 @@ class StreamingScorer:
         self._staged_gnn_dev: "torch.Tensor | None" = None
         self._coalesce_bound = _DELTA_BUCKETS[-1]
         self.coalesced_ticks = 0
+        self.storm_coalesced_ticks = 0
         self.deferred_fetches = 0
         self.stall_seconds = 0.0
         # coalesced-serving state (see serve()): one device pass satisfies
@@ -959,10 +961,29 @@ class StreamingScorer:
     def _tick_async_locked(self) -> dict:
         """tick_async body; the caller holds ``serve_lock``."""
         self._retire_ready()
+        # storm tier: while the ingest layer is in storm mode, coalesce
+        # whenever ANY tick is already in flight (not just on a full
+        # queue), so storm ticks merge toward the delta-ladder top: one
+        # larger dispatch instead of many small ones. Host-side only and
+        # bit-preserving: the same merge as the full-queue path, and the
+        # caller boundary (rescore/serve) still drains everything.
+        if (obs_scope.STORM_FLAG["active"] and self._inflight
+                and len(self._inflight) < self.pipeline_depth):
+            pending = self._pending_delta_count()
+            if pending < self._coalesce_bound:
+                self.coalesced_ticks += 1
+                self.storm_coalesced_ticks += 1
+                obs_metrics.SERVE_COALESCED_TICKS.inc()
+                obs_metrics.SERVE_COALESCED_TICK_SIZE.set(float(pending))
+                return {"dispatched": False, "coalesced": True,
+                        "storm": True, "inflight": len(self._inflight),
+                        "pending": pending}
         if len(self._inflight) >= self.pipeline_depth:
             pending = self._pending_delta_count()
             if pending < self._coalesce_bound:
                 self.coalesced_ticks += 1
+                obs_metrics.SERVE_COALESCED_TICKS.inc()
+                obs_metrics.SERVE_COALESCED_TICK_SIZE.set(float(pending))
                 return {"dispatched": False, "coalesced": True,
                         "inflight": len(self._inflight),
                         "pending": pending}

@@ -2,9 +2,11 @@
 (``device="cpu"``): webhook to resolved incident for both scorers, dedup,
 concurrent webhooks, the feedback round trip, the workflow inspection
 surface and ``/metrics``; a table of bad requests answered with the JAX
-app's status codes (the JAX app on ``rca_backend="cpu"``); the blast route
-answering 501; and the app phase of ``chip_smoke.py`` rehearsed at a small
-size. The patterns are tests/test_app.py and scripts/smoke_e2e.py."""
+app's status codes (the JAX app on ``rca_backend="cpu"``); the blast route's
+contract (a map bounded by the hops, ranked by propagated score, 404 for
+an unknown incident); and the app, CLI, blast and live phases of
+``chip_smoke.py`` rehearsed at a small size. The patterns are
+tests/test_app.py and scripts/smoke_e2e.py."""
 from __future__ import annotations
 
 import json
@@ -187,11 +189,33 @@ def test_feedback_round_trip_and_inspection_surface(rules_app):
         assert name in metrics, name
 
 
-def test_blast_route_answers_501_naming_item_5(rules_app):
+def test_blast_propagation_endpoint(rules_app):
+    """The contract of tests/test_app.py's blast case on the port's app:
+    the reached set is bounded by the hops, scores come from label
+    propagation and rank closer entities higher, an unknown id is 404."""
     app, base, keys = rules_app
+    out = _call(base, "/api/v1/webhooks/alertmanager", {"alerts": [
+        _alert(keys[2], "crashloop_deploy", alertname="BlastCase")]})[1]
+    iid = out["created"][0]
+    _wait(base, iid)
+    status, out = _call(base, f"/api/v1/incidents/{iid}/blast-propagation"
+                              "?hops=3")
+    assert status == 200 and out["incident"] == f"incident:{iid}"
+    assert out["hops"] == 3 and out["iterations"] == 3
+    assert out["reached_nodes"] >= len(out["blast"]) > 0
+    scores = [b["score"] for b in out["blast"]]
+    assert scores == sorted(scores, reverse=True) and all(s > 0 for s in scores)
+    one_hop = _call(base, f"/api/v1/incidents/{iid}/blast-propagation"
+                          "?hops=1&top_k=5")[1]
+    assert one_hop["reached_nodes"] <= out["reached_nodes"]
+    assert len(one_hop["blast"]) <= 5
+    g = _call(base, f"/api/v1/incidents/{iid}/graph?depth=1")[1]
+    direct = {n["id"] for n in g["nodes"]} - {f"incident:{iid}"}
+    assert direct and (out["blast"][0]["id"] in direct
+                       or one_hop["blast"][0]["id"] in direct)
     status, body = _call(base, f"/api/v1/incidents/{uuid.uuid4()}"
                                "/blast-propagation")
-    assert status == 501 and "item 5" in body["error"]
+    assert status == 404 and body["error"] == "incident not in graph"
 
 
 # -- bad requests: the JAX app's status codes ------------------------------------
@@ -273,8 +297,32 @@ def test_chip_smoke_app_phase_rehearsal(backend, verify):
     assert res["incidents"] == 8 and res["scorer"] in (
         "StreamingScorer", "GnnStreamingScorer")
     assert res["webhook_to_verdict_s"]["samples"] == 8
+    assert res["backend_builds"] == 1 and res["backend_names"] == [backend]
+    assert res["checkpoint_loads"] == (2 if backend == "gnn" else 0)
+    assert res["coalesced_ticks_metrics"] == res["coalesced_ticks"]
     if verify:
         assert res["checked_serves"] >= 8
+
+
+def test_chip_smoke_blast_phase_rehearsal():
+    import chip_smoke
+    res = chip_smoke.run_app(
+        "tpu", torch.device("cpu"), num_pods=96, num_incidents=6, batch=3,
+        node_bucket_sizes=(512, 2048), incident_bucket_sizes=(8, 32),
+        after=lambda app, base: chip_smoke.blast_phase(app, base, num=4))
+    blast = res["after"]
+    assert blast["route_calls"] == 16 and blast["incidents"] == 4
+    assert blast["scores_bit_equal_cpu"] is True
+    assert blast["khop_propagate_device_ms_hops3"] is None
+    assert 0 < blast["reached_nodes"][1][0] <= blast["reached_nodes"][3][1]
+
+
+def test_chip_smoke_cli_phase_rehearsal():
+    import chip_smoke
+    res = chip_smoke.run_cli(torch.device("cpu"), num_pods=200)
+    assert res["incidents"] == len(SCENARIOS) and res["pods"] == 200
+    assert res["graph"]["nodes"] > 0 and res["b1_device_ms"] is None
+    assert res["top1_equals_expected_rule"] >= 8
 
 
 @pytest.mark.parametrize("backend", ["gnn", "tpu"])

@@ -237,3 +237,11 @@ def test_gnn_delta_rides_the_base_slab(params, monkeypatch):
     fresh = GnnStreamingScorer(builder.store, cfg, params=params, now_s=now,
                                device="cpu").rescore()
     _assert_probs(out, fresh, "slab tick vs fresh", rtol=1e-4)
+
+
+def test_storm_tier_coalesces_while_a_tick_is_in_flight(params):
+    """JAX tests/test_storm.py:317-334 on the learned scorer, which
+    inherits the storm tier (see test_torch_streaming.storm_contract)."""
+    from tests.test_torch_streaming import storm_contract
+    storm_contract(lambda store, cfg, now_s: GnnStreamingScorer(
+        store, cfg, params=params, now_s=now_s, device="cpu"))

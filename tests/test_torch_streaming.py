@@ -282,3 +282,80 @@ def test_feature_stage_latest_wins_and_drains_with_sentinels():
     assert idx.tolist() == [5, 2, 99, 99]
     assert rows.tolist() == [[7, 8, 9], [4, 5, 6], [0, 0, 0], [0, 0, 0]]
     assert len(stage) == 0
+
+
+# -- the storm tier: JAX tests/test_storm.py:317-334 on the port's scorers -------
+
+class _NeverReady:
+    """The completion event of a queued tick the host never observes as
+    complete: a deterministic stand-in for a device still executing."""
+
+    def query(self) -> bool:
+        return False
+
+
+def storm_contract(make_scorer):
+    """Steady depth 2 spends the second pipeline slot on a submission made
+    while one tick is in flight; the storm tier coalesces it instead, counts
+    it (``storm_coalesced_ticks``, ``/metrics``), and the verdict boundary
+    loses nothing: ``rescore()`` equals, bit for bit, a scorer on the same
+    store that dispatched the same deltas with the flag off.
+    ``make_scorer(store, settings, now_s)`` builds the port scorer."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.observability import (
+        metrics as t_metrics, scope as t_scope)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        store_step)
+    cfg = load_settings(serve_pipeline_depth=2, **SMALL)
+    cluster, builder, _ = _world(PORT_PKG, cfg)
+    now_s = cluster.now.timestamp()
+    scorer = make_scorer(builder.store, cfg, now_s)
+    steady = make_scorer(builder.store, cfg, now_s)
+    stream = list(churn_events(cluster, 20, seed=3,
+                               incident_ids=tuple(builder.store.incident_ids())))
+
+    def pressured_submit(s):
+        """One submission with a tick pinned in flight."""
+        s._inflight.append(st._Tick(out=(), done=_NeverReady()))
+        try:
+            with s.serve_lock:
+                return s._tick_async_locked()
+        finally:
+            s._inflight.clear()
+
+    for ev in stream[:10]:
+        store_step(cluster, builder.store, ev)
+    for s in (scorer, steady):
+        s.sync()
+        assert pressured_submit(s)["dispatched"], "steady tier must use the free slot"
+    for ev in stream[10:]:
+        store_step(cluster, builder.store, ev)
+    ticks = t_metrics.SERVE_COALESCED_TICKS.value()
+    steady.sync()
+    assert pressured_submit(steady)["dispatched"]
+    t_scope.STORM_FLAG["active"] = True
+    try:
+        scorer.sync()
+        out = pressured_submit(scorer)
+        assert out == {"dispatched": False, "coalesced": True, "storm": True,
+                       "inflight": 1, "pending": out["pending"]}
+        assert out["pending"] > 0
+        assert scorer.storm_coalesced_ticks == scorer.coalesced_ticks == 1
+        assert t_metrics.SERVE_COALESCED_TICKS.value() == ticks + 1
+        assert t_metrics.SERVE_COALESCED_TICK_SIZE.value() == out["pending"]
+        # the coalesced deltas dispatch at the caller boundary
+        got = scorer.rescore()
+    finally:
+        t_scope.STORM_FLAG["active"] = False
+    want = steady.rescore()
+    assert steady.storm_coalesced_ticks == 0
+    assert list(got["incident_ids"]) == list(want["incident_ids"])
+    arrays = [k for k, v in want.items() if isinstance(v, np.ndarray)]
+    assert "top_rule_index" in arrays
+    for key in arrays:
+        assert got[key].dtype == want[key].dtype
+        assert got[key].tobytes() == want[key].tobytes(), key
+
+
+def test_storm_tier_coalesces_while_a_tick_is_in_flight():
+    storm_contract(lambda store, cfg, now_s: st.StreamingScorer(
+        store, cfg, now_s=now_s, device="cpu"))

@@ -251,7 +251,6 @@ def test_unported_settings_raise_and_name_their_item(override, item):
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"KAEG_CLUSTER_BACKEND": "kubernetes"}, "item 4c"),
     ({"KAEG_NUM_PROCESSES": "2"}, "item 9")])
 def test_main_refuses_what_is_not_ported(env, item, monkeypatch):
     from kubernetes_aiops_evidence_graph_tpu_torch.config import settings as cs
@@ -306,6 +305,57 @@ def test_corrupt_checkpoint_serves_the_counted_rules_fallback(tmp_path):
     assert gen["backend"] == "gnn" and gen["mode"] == "streaming"
     assert gen["top_rule"] == "crashloop_recent_deploy"
     assert {h["backend"] for h in db.hypotheses_for(inc.id)} == {"tpu"}
+
+
+# -- C1: one backend per (name, device), as the JAX package's get_backend ---------
+
+def test_get_backend_memoizes_one_backend_per_name_and_device(monkeypatch):
+    from kubernetes_aiops_evidence_graph_tpu_torch import rca as t_rca
+    monkeypatch.setattr(t_rca, "_INSTANCES", {})
+    builds = t_rca.builds
+    tpu = t_rca.get_backend("tpu", device="cpu")
+    assert t_rca.get_backend("tpu", device=torch.device("cpu")) is tpu
+    gnn = t_rca.get_backend("gnn", device="cpu")
+    assert t_rca.get_backend("gnn", device="cpu") is gnn is not tpu
+    cpu = t_rca.get_backend("cpu")
+    assert t_rca.get_backend("cpu", device="cpu") is cpu
+    assert (tpu.name, gnn.name) == ("tpu", "gnn")
+    assert t_rca.builds == builds + 3
+    with pytest.raises(KeyError, match="unknown rca backend"):
+        t_rca.get_backend("nope")
+
+
+def test_learned_workflow_loads_its_checkpoint_once(monkeypatch):
+    """Several incidents through the worker on ``rca_backend="gnn"``: the
+    resident scorer loads the checkpoint once and the verdict backend
+    (``get_backend("gnn")``) once, where a backend built per incident
+    loaded it once per verdict."""
+    from kubernetes_aiops_evidence_graph_tpu_torch import rca as t_rca
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn_backend
+    monkeypatch.setattr(t_rca, "_INSTANCES", {})
+    loads = []
+    real = gnn_backend.load_validated_checkpoint
+    monkeypatch.setattr(gnn_backend, "load_validated_checkpoint",
+                        lambda path: loads.append(path) or real(path))
+    cluster = _cluster()
+    keys = sorted(cluster.deployments)
+    rng = np.random.default_rng(4)
+    incidents = [t_simulator.inject(cluster, name, keys[i], rng)
+                 for i, name in enumerate(("crashloop_deploy", "oom",
+                                           "imagepull", "network"))]
+    db = t_storage.Database(":memory:")
+    _DBS.append(db)
+    for inc in incidents:
+        db.create_incident(inc)
+    worker = t_workflow.IncidentWorker(cluster, db, settings=T.settings(
+        rca_backend="gnn"), device="cpu")
+    assert _run(worker.run_all(incidents)) == {"completed": 4, "failed": 0}
+    assert type(worker.scorer) is TGnnScorer
+    for inc in incidents:
+        hyps = db.hypotheses_for(inc.id)
+        assert hyps and {h["backend"] for h in hyps} == {"gnn"}
+    assert len(loads) == 2
+    assert [k[0] for k in t_rca._INSTANCES] == ["gnn"]
 
 
 def test_incident_from_row_rehydrates_the_stored_incident():
