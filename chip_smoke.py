@@ -154,7 +154,26 @@ the learned model's training, offline (``rca/train.py``) and online
    (``LIVE_TABLE``); one webhook for ``payments/checkout`` polled until
    its workflow closed it; ``rules_fold`` must launch and the hypotheses
    be the resident scorer's; a ``{"live": {...}}`` line;
-15. prints a ``{"gms_compare": {...}}`` line (the message pass split by
+15. crash recovery (``run_recovery``, ROADMAP item 6): the config-4 world
+   (10,000 pods, 100 incidents, 2,000 churn events in ticks of 100, seed
+   0) served through ``ShieldedScorer`` by the rules scorer (B1) and the
+   learned scorer's composed (B2), fused (B3) and streamed float32 (B4)
+   tiers, each unfaulted (no tier transition allowed) and under a seeded
+   fault schedule across the tick stages, with a kill and restart (a
+   fresh scorer and shield on the same journal directory, ``recover()``)
+   after tick 15: the final verdicts and the sha256 of the packed
+   resident state equal the unfaulted run's bit for bit, and two silent
+   corruptions of the resident features, a NaN block and one flipped low
+   bit of a finite value, are each flagged by the attestation fold and
+   repaired at the snapshot boundary. Beside them, a streamed scorer
+   whose streamed and then fused tiers break for good walks its fallback
+   rung B4 → B3 → B2, bit-identical, and a learned scorer whose every tick
+   fails from tick 6 on is shed for the rules scorer (B1). Then
+   ``run_app("tpu")`` unshielded and with ``shield_enabled``, back to
+   back; a ``{"recovery": {...}}`` line (snapshot bytes, capture and
+   persist seconds, the restart's recover seconds and records replayed,
+   the transitions, launches by kernel, both apps' numbers);
+16. prints a ``{"gms_compare": {...}}`` line (the message pass split by
    kernel at config 3, forward and dh, and config 4; the hub probe; the
    learned forward, the train step, the ticks per tier, each split by
    kernel, and learned events/s; ``grad_w`` per launch at the trainer's
@@ -379,18 +398,23 @@ def build_world(num_pods: int, num_incidents: int, seed: int = 0):
 def device_ms(fn, iters: int = 20, by_kernel: bool = False):
     """Mean device-busy time of ``fn`` in ms, from the profiler's CUDA
     activity (CUPTI): the sum of the kernels' and copies' own device time
-    over ``iters`` calls. 0.0 when the profiler saw no device activity.
-    With ``by_kernel``, a dict of that time per kernel name instead."""
+    over ``iters`` calls. 0.0 when the profiler saw no device activity in
+    three sessions (CUPTI now and then reports none for a whole session,
+    so an empty one is profiled again). With ``by_kernel``, a dict of
+    that time per kernel name instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {e.key: e.self_device_time_total / iters / 1e3
-           for e in prof.key_averages() if e.self_device_time_total > 0}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {e.key: e.self_device_time_total / iters / 1e3
+               for e in prof.key_averages() if e.self_device_time_total > 0}
+        if per:
+            break
     return per if by_kernel else sum(per.values())
 
 
@@ -2402,11 +2426,15 @@ def served_app(backend: str, dev, loads: list, num_pods: int = 10_000,
             if moved < len(posted_at):
                 raise AssertionError(f"app {backend}: {name} moved by "
                                      f"{moved} for {len(posted_at)} incidents")
-        scorer = app.worker.scorer
+        served_by = app.worker.scorer
+        scorer = getattr(served_by, "scorer", served_by)   # under a shield
         want_type = GnnStreamingScorer if backend == "gnn" else StreamingScorer
         if type(scorer) is not want_type:
             raise AssertionError(f"app {backend}: served by "
                                  f"{type(scorer).__name__}")
+        if settings.shield_enabled and served_by is scorer:
+            raise AssertionError(f"app {backend}: shield_enabled, but the "
+                                 f"scorer serves unshielded")
         kernel = "gms" if backend == "gnn" else "rules_fold"
         if on_card and counts[kernel] < 1:
             raise AssertionError(f"app {backend}: {kernel} never launched")
@@ -2511,6 +2539,11 @@ def served_app(backend: str, dev, loads: list, num_pods: int = 10_000,
             "checkpoint_loads": builds["checkpoint_loads"],
             "absorb_busy": scorer.absorb_busy,
             "after": after_res,
+            "shield": (None if served_by is scorer else {
+                k: v for k, v in served_by.stats().items() if k in (
+                    "tier", "tier_log", "snapshots", "recoveries",
+                    "journal_batches", "journal_bytes",
+                    "quarantined_batches")}),
         }
     finally:
         app.stop()
@@ -2907,6 +2940,430 @@ def run_live(dev, deadline_s: float = APP_DEADLINE_S) -> dict:
     return res
 
 
+# -- crash recovery: the shield around B1-B4 --------------------------------
+
+RECOVERY_KINDS = {
+    "rules": ({}, "rules_fold"),
+    "composed": ({"rca_backend": "gnn"}, "gms"),
+    "fused": ({"rca_backend": "gnn", "gnn_fused_tick": True}, "fused_tick"),
+    "dma": ({"rca_backend": "gnn", "gnn_tick_dma": True,
+             "gnn_fused_tick": True}, "fused_tick_dma"),
+}
+"""Phase 15's fault matrix: the rules scorer (B1) and the learned scorer's
+tiers, composed (B2), fused (B3) and streamed on the float32 table (B4)
+with the fused tier configured under it, each with the kernel its tick
+launches."""
+
+TIER_KERNEL = {"fused_tick_dma": "B4", "fused_tick": "B3", "gms": "B2"}
+
+SUSPECT_FAULTS = (("dispatch", "raise"), ("pack", "raise"),
+                  ("execute", "device_loss"), ("delta_values", "poison"),
+                  ("shard_loss", "shard_loss"))
+
+
+def recovery_plan(seed: int, ticks: int, rescore_every: int,
+                  kill_at: int) -> list:
+    """A seeded fault schedule across the tick stages, as ``(tick, stage,
+    kind)``, one fault a stage: the stages after which the resident state
+    is suspect at distinct seeded ticks, three before the kill and two
+    after it (so that each is recovered by a guarded call of its own, by
+    replay), and the retriable ones (staging, a torn journal append, a
+    fetch) at seeded ticks. ``run_recovery`` arms each fault at its
+    stage's next visit when its tick begins; a fifth retriable fault, the
+    first cadence snapshot's write, is armed from the start."""
+    rng = np.random.default_rng(seed)
+    when = np.concatenate([
+        rng.choice(np.arange(1, kill_at), 3, replace=False),
+        rng.choice(np.arange(kill_at + 1, ticks), 2, replace=False)])
+    plan = [(int(t), stage, kind) for (stage, kind), t in zip(
+        [SUSPECT_FAULTS[i] for i in rng.permutation(len(SUSPECT_FAULTS))],
+        when)]
+    plan += [(int(rng.integers(1, ticks)), "staging", "raise"),
+             (int(rng.integers(1, ticks)), "journal_append", "raise"),
+             (int(rng.choice(np.arange(rescore_every - 1, ticks,
+                                       rescore_every))), "fetch", "raise")]
+    return sorted(plan)
+
+
+def packed_digest(scorer) -> str:
+    """sha256 of the resident state as a snapshot packs it (one flat int32
+    tensor, copied to the host after the scorer's in-flight ticks)."""
+    import hashlib
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.shield import (
+        _snapshot_pack)
+    with scorer._on_stream():
+        flat = _snapshot_pack(*scorer._resident_arrays()).cpu().numpy()
+    return hashlib.sha256(flat.tobytes()).hexdigest()
+
+
+def bit_equal_verdicts(mine: dict, ref: dict, what: str) -> int:
+    """Raise unless two raw verdict dicts hold the same bytes in every
+    output of every incident, matched by incident id."""
+    keys = (("probs", "top_rule_index", "any_match", "top_confidence")
+            if "probs" in ref else
+            ("conditions", "matched", "scores", "top_rule_index", "any_match",
+             "top_confidence", "top_score"))
+    if "probs" in ref and "probs" not in mine:
+        raise AssertionError(f"{what}: served by the rules fallback")
+    a = {iid: i for i, iid in enumerate(mine["incident_ids"])}
+    b = {iid: i for i, iid in enumerate(ref["incident_ids"])}
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: live incident sets differ")
+    for k in keys:
+        x = np.ascontiguousarray(np.asarray(mine[k])[[a[i] for i in a]])
+        y = np.ascontiguousarray(np.asarray(ref[k])[[b[i] for i in a]])
+        if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            raise AssertionError(f"{what}: {k} differs from the unfaulted "
+                                 f"run's bits")
+    return len(a)
+
+
+def serving_tier(scorer) -> str:
+    """The tier a scorer's next tick runs: ``rules``, or the learned
+    tick's streamed (``dma``) / ``fused`` / ``composed`` tier."""
+    if not hasattr(scorer, "_dma_ok"):
+        return "rules"
+    if scorer._dma_ok():
+        return "dma"
+    return "fused" if scorer._fused_ok() else "composed"
+
+
+def break_tiers(scorer, broken: set) -> None:
+    """A persistent kernel fault in the learned scorer's tiers: while the
+    tier its next tick runs (``serving_tier``) is in ``broken`` (which
+    the caller grows), every tick loses the device state as a device loss
+    does and raises at the ``execute`` stage instead of launching. Set on
+    this scorer object only; a recovery restores into the same object."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.faults import (
+        FaultInjector, InjectedFault)
+    real = scorer._call_gnn_tick
+    visits = collections.Counter()
+
+    def call(*args, **kw):
+        tier = serving_tier(scorer)
+        if tier in broken:
+            visits[tier] += 1
+            FaultInjector._corrupt_resident(scorer)
+            raise InjectedFault("execute", "device_loss", visits[tier] - 1)
+        return real(*args, **kw)
+
+    scorer._call_gnn_tick = call
+
+
+def flip_feature_bit(scorer, seed: int) -> None:
+    """Silent, finite corruption of the resident features: the lowest
+    mantissa bit of one float32 value in one row, chosen from ``seed``,
+    flipped in place on the scorer's device."""
+    import torch
+    feats = scorer._features_dev
+    rng = np.random.default_rng(seed)
+    row = int(rng.integers(feats.shape[0]))
+    col = int(rng.integers(feats.shape[1]))
+    with scorer._on_stream():
+        feats.view(torch.int32)[row, col] ^= 1
+        if not bool(torch.isfinite(feats[row, col])):
+            raise AssertionError("the flipped feature is not finite")
+
+
+def run_recovery(dev, num_pods: int = 10_000, num_incidents: int = 100,
+                 events: int = 2000, batch_size: int = 100, seed: int = 0,
+                 snapshot_every: int = 5, rescore_every: int = 5,
+                 kill_at: int = 15, walk_at: tuple = (4, 9),
+                 fallback_at: int = 6) -> dict:
+    """Crash recovery on the card (ROADMAP item 6): the config-4 world
+    (``num_pods`` pods, ``num_incidents`` incidents, ``events`` churn
+    events in ticks of ``batch_size``, seed 0) served through
+    ``ShieldedScorer`` over one store, each shield on its own journal
+    directory, snapshots every ``snapshot_every`` calls, a caller-boundary
+    ``rescore()`` every ``rescore_every`` ticks:
+
+    * the fault matrix: the rules scorer (B1) and the learned scorer's
+      composed (B2), fused (B3) and streamed (B4) tiers, each twice,
+      unfaulted (the reference, which must make no tier transition) and
+      under a seeded ``FaultInjector`` schedule across the tick stages
+      (``recovery_plan``). After tick ``kill_at`` every faulted scorer is
+      killed and restarted: a fresh scorer and shield on the same
+      directory, ``recover()``, and the churn goes on through them;
+    * the tier walk: a streamed scorer whose streamed tier breaks for good
+      at tick ``walk_at[0]`` and its fused tier at ``walk_at[1]``
+      (``break_tiers``): its fallback rung must launch B4, then B3, then
+      B2;
+    * the rules fallback: a learned scorer whose every tick fails from
+      tick ``fallback_at`` on is shed for a rules scorer (B1) on the card.
+
+    Checks, failing the run on any difference: the final verdicts of each
+    faulted scorer equal, bit for bit, the unfaulted reference's of the
+    tier it serves, and the sha256 of its packed resident state equals
+    its reference's; the learned references' digests are equal; every
+    kernel launched. Then on each faulted matrix shield two silent
+    corruptions of the resident features, one at a time: a NaN block, and
+    one flipped low bit of one finite value (``flip_feature_bit``). For
+    each, the attestation fold on the card flags exactly that tensor
+    against the host mirrors, the snapshot boundary repairs it in place,
+    and the digest and the verdicts come back to the reference's.
+    Returns the ``{"recovery": ...}`` record."""
+    import tempfile
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.config import load_settings
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import heal
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.faults import (
+        Fault, FaultInjector)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
+        GnnStreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.shield import (
+        ShieldedScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
+        StreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        churn_events, store_step)
+
+    t0 = time.perf_counter()
+    _, cluster, builder, _ = streaming_world(num_pods, num_incidents, seed)
+    store, now = builder.store, cluster.now.timestamp()
+    stream = list(churn_events(cluster, events, seed=seed + 1,
+                               incident_ids=tuple(store.incident_ids())))
+    ticks = -(-len(stream) // batch_size)
+    world_s = time.perf_counter() - t0
+    tmp = tempfile.TemporaryDirectory(prefix="kaeg-recovery-")
+    configs = {kind: load_settings(
+        shield_snapshot_every_ticks=snapshot_every,
+        shield_retry_backoff_s=0.001, **over)
+        for kind, (over, _) in RECOVERY_KINDS.items()}
+    configs["walk"] = configs["dma"]
+    configs["fallback"] = configs["composed"]
+
+    def make_scorer(kind):
+        cls = (StreamingScorer if kind == "rules" else GnnStreamingScorer)
+        return cls(store, configs[kind], now_s=now, device=dev)
+
+    def make_shield(key, injector=None):
+        sh = ShieldedScorer(make_scorer(key[0]), configs[key[0]],
+                            directory=os.path.join(tmp.name, *key),
+                            injector=injector)
+        sh.recover_or_snapshot()
+        return sh
+
+    shields: dict = {}
+    injectors, plans = {}, {}
+    for k, kind in enumerate(RECOVERY_KINDS):
+        plans[kind] = recovery_plan(seed + 100 + k, ticks, rescore_every,
+                                    kill_at)
+        injectors[kind] = FaultInjector([Fault("snapshot_write", at=1)])
+        shields[kind, "ref"] = make_shield((kind, "ref"))
+        shields[kind, "faulted"] = make_shield((kind, "faulted"),
+                                               injectors[kind])
+    broken: set = set()
+    shields["walk", "faulted"] = make_shield(("walk", "faulted"))
+    break_tiers(shields["walk", "faulted"].scorer, broken)
+    fallback_inj = FaultInjector([])
+    shields["fallback", "faulted"] = make_shield(("fallback", "faulted"),
+                                                 fallback_inj)
+    launches = {key: collections.Counter() for key in shields}
+    walk: list[str] = []            # the walking scorer's tiers, in order
+    restarts = {}
+    logs_before_kill = {}
+
+    def call(key, fn):
+        before = read_counts()
+        out = fn()
+        delta = {n: c - before[n] for n, c in read_counts().items()}
+        launches[key].update(delta)
+        if key == ("walk", "faulted"):
+            for name, tier in TIER_KERNEL.items():
+                if delta.get(name) and (not walk or walk[-1] != tier):
+                    walk.append(tier)
+                    break
+        return out
+
+    reset_counts()
+    t1 = time.perf_counter()
+    for t in range(ticks):
+        for kind, inj in injectors.items():
+            inj.faults += [Fault(stage, at=inj.visits.get(stage, 0),
+                                 kind=fkind)
+                           for tt, stage, fkind in plans[kind] if tt == t]
+        if t == walk_at[0]:
+            broken.add("dma")
+        if t == walk_at[1]:
+            broken.add("fused")
+        if t == fallback_at:
+            # every GNN tick from here on fails: the ladder sheds the
+            # learned scorer for the rules scorer
+            fallback_inj.faults.append(Fault(
+                "execute", at=fallback_inj.visits.get("execute", 0),
+                kind="device_loss", repeats=10 ** 9))
+        for ev in stream[t * batch_size:(t + 1) * batch_size]:
+            store_step(cluster, store, ev)
+        for key, sh in shields.items():
+            call(key, sh.tick)
+        if (t + 1) % rescore_every == 0:
+            for key, sh in shields.items():
+                call(key, sh.rescore)
+        if t + 1 == kill_at:
+            # kill and restart: a fresh scorer and shield on the faulted
+            # shield's directory (the same schedule goes on firing)
+            for kind in RECOVERY_KINDS:
+                old = shields[kind, "faulted"]
+                old.close()
+                logs_before_kill[kind] = tuple(old.tier_log)
+                fresh = ShieldedScorer(
+                    make_scorer(kind), configs[kind],
+                    directory=os.path.join(tmp.name, kind, "faulted"),
+                    injector=injectors[kind])
+                res = call((kind, "faulted"), fresh.recover)
+                if res["mode"] != "journal_replay":
+                    raise AssertionError(f"recovery {kind}: the restart "
+                                         f"recovered by {res['mode']}")
+                restarts[kind] = {k: res[k] for k in (
+                    "replayed", "seconds", "torn_truncated")}
+                shields[kind, "faulted"] = fresh
+    finals = {key: call(key, sh.rescore) for key, sh in shields.items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    churn_s = time.perf_counter() - t1
+    counts = read_counts()
+
+    for kind in RECOVERY_KINDS:
+        ref = shields[kind, "ref"]
+        if ref.tier_log or ref.recoveries or ref.tier != "steady":
+            raise AssertionError(f"recovery {kind}: the unfaulted shield made "
+                                 f"transitions {ref.tier_log}")
+    digests = {key: packed_digest(sh.scorer) for key, sh in shields.items()}
+    learned = {digests[k, "ref"] for k in RECOVERY_KINDS if k != "rules"}
+    if len(learned) > 1:
+        raise AssertionError("recovery: the learned tiers' unfaulted "
+                             "resident states differ")
+    per_kind = {}
+    for kind, (_, kernel) in RECOVERY_KINDS.items():
+        sh = shields[kind, "faulted"]
+        if dev.type == "cuda" and (launches[kind, "ref"][kernel] < 1
+                                   or launches[kind, "faulted"][kernel] < 1):
+            raise AssertionError(f"recovery {kind}: {kernel} never launched")
+        if not sh.injector.fired or sh.recoveries < 1:
+            raise AssertionError(f"recovery {kind}: no fault recovered "
+                                 f"(fired {sh.injector.fired})")
+        tier = serving_tier(sh.scorer)
+        n = bit_equal_verdicts(finals[kind, "faulted"],
+                               finals[tier, "ref"],
+                               f"recovery {kind} (serving {tier})")
+        if digests[kind, "faulted"] != digests[kind, "ref"]:
+            raise AssertionError(f"recovery {kind}: the packed resident "
+                                 f"state differs from the unfaulted run's")
+        # silent corruption, flagged by the fold and repaired in place at
+        # the snapshot boundary: one NaN block (which the finite guard
+        # would also catch) and one flipped low bit of one finite value
+        # in one row (which only the fold can see)
+        scorer = sh.scorer
+        flagged = {}
+        for what, corrupt in (
+                ("nan_block",
+                 lambda: FaultInjector._corrupt_shard(scorer, 0)),
+                ("finite_flip", lambda: flip_feature_bit(scorer, seed))):
+            corrupt()
+            pairs = scorer._attest_arrays()
+            with scorer._on_stream():
+                fold = heal.attest_fold(
+                    *[getattr(scorer, a) for a, _ in pairs],
+                    shards=1).cpu().numpy()
+            bad = fold != heal.attest_host([h for _, h in pairs], 1)
+            flagged[what] = [a for (a, _), row in zip(pairs, bad)
+                             if row.any()]
+            if flagged[what] != ["_features_dev"]:
+                raise AssertionError(
+                    f"recovery {kind} ({what}): the fold flagged "
+                    f"{flagged[what]}, not the corrupted features")
+            repairs = sh.attest_repairs
+            nbytes = sh.snapshot_now()
+            if sh.attest_repairs != repairs + 1:
+                raise AssertionError(
+                    f"recovery {kind} ({what}): the snapshot boundary did "
+                    "not repair the corrupted block")
+            if packed_digest(scorer) != digests[kind, "ref"]:
+                raise AssertionError(
+                    f"recovery {kind} ({what}): the repaired state differs "
+                    "from the unfaulted run's")
+            again = call((kind, "faulted"), sh.rescore)
+            bit_equal_verdicts(again, finals[tier, "ref"],
+                               f"recovery {kind} after the {what} repair")
+        per_kind[kind] = {
+            "incidents": n, "serving_tier_at_end": tier,
+            "faults_fired": len(sh.injector.fired),
+            "fired": [list(f) for f in sh.injector.fired],
+            "tier_log": (list(logs_before_kill[kind]) + ["restart"]
+                         + list(sh.tier_log)),
+            "restart": restarts[kind],
+            "snapshot_bytes": nbytes,
+            "capture_s": sh.last_capture_seconds,
+            "persist_s": sh.last_persist_seconds,
+            "attest_flagged": flagged,
+            "launches_ref": dict(launches[kind, "ref"]),
+            "launches_faulted": dict(launches[kind, "faulted"]),
+            "digest": digests[kind, "ref"][:16],
+        }
+
+    # the walk: B4, then B3, then B2, each recovery bit-identical. The
+    # final verdicts are the composed tier's: on the card the fused chain
+    # rounds its probs apart from the composed tick (within ~2.4e-7), so
+    # they are held to the composed reference, the state to the digest
+    wsh = shields["walk", "faulted"]
+    if serving_tier(wsh.scorer) != "composed" or wsh.tier_log.count(
+            "kernel_fallback") != 2:
+        raise AssertionError(f"recovery walk: ended on "
+                             f"{serving_tier(wsh.scorer)} after "
+                             f"{wsh.tier_log}")
+    if dev.type == "cuda" and walk != ["B4", "B3", "B2"]:
+        raise AssertionError(f"recovery walk: the fallback rung walked "
+                             f"{walk}, not B4 -> B3 -> B2")
+    bit_equal_verdicts(finals["walk", "faulted"], finals["composed", "ref"],
+                       "recovery walk")
+    if digests["walk", "faulted"] != digests["dma", "ref"]:
+        raise AssertionError("recovery walk: the packed resident state "
+                             "differs from the unfaulted run's")
+    # the rules fallback: a rules scorer on the card serves the rules
+    # reference's verdicts
+    fsh = shields["fallback", "faulted"]
+    if fsh.tier != "rules_fallback" or type(fsh.scorer) is not \
+            StreamingScorer or fsh.scorer.device != dev:
+        raise AssertionError(f"recovery fallback: serving {fsh.tier} on "
+                             f"{type(fsh.scorer).__name__}")
+    if dev.type == "cuda" and launches["fallback", "faulted"][
+            "rules_fold"] < 1:
+        raise AssertionError("recovery fallback: rules_fold never launched")
+    fallback_out = finals["fallback", "faulted"]
+    fallback_equal = sum(
+        a == b for a, b in zip(
+            by_incident(fallback_out, "top_rule_index"),
+            by_incident(finals["rules", "ref"], "top_rule_index")))
+    if not np.isfinite(np.asarray(fallback_out["top_score"])).all():
+        raise AssertionError("recovery fallback: non-finite verdicts")
+    for sh in shields.values():
+        sh.close()
+    tmp.cleanup()
+    res = {"world": {"pods": num_pods, "incidents": num_incidents,
+                     "events": len(stream), "ticks": ticks,
+                     "batch": batch_size, "snapshot_every": snapshot_every},
+           "world_s": world_s, "churn_s": churn_s,
+           "launches": counts, "kinds": per_kind, "plans": plans,
+           "walk": {"kernels": walk, "tier_log": list(wsh.tier_log),
+                    "recoveries": wsh.recoveries,
+                    "launches": dict(launches["walk", "faulted"])},
+           "fallback": {"tier_log": list(fsh.tier_log),
+                        "incidents": len(fallback_out["incident_ids"]),
+                        "top1_equal_to_rules_ref": int(fallback_equal),
+                        "launches": dict(launches["fallback", "faulted"])},
+           "transitions_unfaulted": sum(
+               len(shields[k, "ref"].tier_log) for k in RECOVERY_KINDS)}
+    log(f"recovery: {json.dumps(res)}")
+    return res
+
+
+def by_incident(out: dict, key: str) -> list:
+    """``out[key]`` row by row, in sorted incident-id order."""
+    rows = {iid: i for i, iid in enumerate(out["incident_ids"])}
+    vals = np.asarray(out[key])
+    return [vals[rows[iid]].tobytes() for iid in sorted(rows)]
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -3111,6 +3568,23 @@ def main(argv: list[str]) -> int:
     rules_learned["cli"] = cli_run["launches"]["rules_fold"]
     rules_learned["live_app"] = live["launches"]["rules_fold"]
 
+    # -- 15. crash recovery: the shield around B1-B4 on the config-4 world,
+    # then the app serving through the shield ---------------------------
+    import tempfile
+    recovery = run_recovery(dev)
+    # the rules app unshielded, then shielded, back to back: the shield's
+    # cost end to end (journal appends, snapshots) at the same load
+    plain_app = run_app("tpu", dev)
+    with tempfile.TemporaryDirectory(prefix="kaeg-shield-app-") as d:
+        shield_app = run_app("tpu", dev, shield_enabled=True, shield_dir=d)
+    if shield_app["shield"]["tier_log"] or \
+            shield_app["shield"]["recoveries"]:
+        raise AssertionError(f"app shielded: {shield_app['shield']}")
+    rec_paths = {"config4_recovery": recovery["launches"],
+                 "app_tpu_unshielded": plain_app["launches"],
+                 "app_tpu_shielded": shield_app["launches"]}
+    rules_learned.update({k: c["rules_fold"] for k, c in rec_paths.items()})
+
     kernels = [{
         "name": "rules_fold", "route": "cuda",
         "source": "kubernetes_aiops_evidence_graph_tpu_torch/kernels/rules_fold.cu",
@@ -3144,11 +3618,13 @@ def main(argv: list[str]) -> int:
                     "pallas_segment.py:152 (_gms_kernel)",
         "launches": learned3["launches"] + learned4["launches"] + sum(
             c["gms"] for c in train_paths.values()) + sum(
-            c["gms"] for c in app_paths.values()),
+            c["gms"] for c in app_paths.values())
+            + recovery["launches"]["gms"],
         "launches_by_path": {"config3_learned": learned3["launches"],
                              "config4_learned": learned4["launches"],
                              **{k: c["gms"] for k, c in train_paths.items()},
-                             **{k: c["gms"] for k, c in app_paths.items()}},
+                             **{k: c["gms"] for k, c in app_paths.items()},
+                             "config4_recovery": recovery["launches"]["gms"]},
         "config4_ticks": learned4["ticks"],
         "max_abs_err": gms_err,
         "ms": learned3["timing"]["ms"],
@@ -3191,9 +3667,12 @@ def main(argv: list[str]) -> int:
                       "fused_tick.cu",
             "replaces": "kubernetes_aiops_evidence_graph_tpu/ops/"
                         f"pallas_segment.py:{line}",
-            "launches": sum(tiers[r]["counts"][name] for r in runs),
-            "launches_by_path": {f"config4_learned_{r}": tiers[r]["counts"][name]
-                                 for r in runs},
+            "launches": sum(tiers[r]["counts"][name] for r in runs)
+            + recovery["launches"][name],
+            "launches_by_path": {
+                **{f"config4_learned_{r}": tiers[r]["counts"][name]
+                   for r in runs},
+                "config4_recovery": recovery["launches"][name]},
             "config4_ticks": tiers[runs[0]]["ticks"],
             "max_abs_err": fused_err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -3244,6 +3723,17 @@ def main(argv: list[str]) -> int:
             "config4_online_learner": {k: online["grad_w"][k] for k in (
                 "ms_per_launch", "bound_ms", "launches")}},
     })
+    for kind, r in recovery["kinds"].items():
+        log(f"recovery {kind} ({smi}): {r['faults_fired']} faults, "
+            f"transitions {r['tier_log']}, restart replayed "
+            f"{r['restart']['replayed']} records in "
+            f"{r['restart']['seconds']:.4f} s, snapshot "
+            f"{r['snapshot_bytes']} B (capture {r['capture_s']:.4f} s, "
+            f"persist {r['persist_s']:.4f} s), ends on {r['serving_tier_at_end']}")
+    log(f"recovery walk: {recovery['walk']['kernels']}; fallback: "
+        f"{recovery['fallback']['tier_log']}; app rules unshielded "
+        f"{plain_app['incidents_per_s']:.2f} vs shielded "
+        f"{shield_app['incidents_per_s']:.2f} incidents/s")
     log(f"cli ({smi}): {cli_run['seconds']:.2f} s at {cli_run['pods']} pods, "
         f"graph {cli_run['graph']}, B1 {cli_run['b1_device_ms']} device ms; "
         f"blast: {blast['ms_per_call']:.3f} ms a route call, "
@@ -3355,6 +3845,20 @@ def main(argv: list[str]) -> int:
             "checked_serves", "served_vs_snapshot_max_abs_err", "launches",
             "backend_builds", "checkpoint_loads", "wall_s")}
             for b, r in app_checks.items()}}}))
+    app_keys = ("incidents", "incidents_per_s", "webhook_to_verdict_s",
+                "webhook_to_closed_s", "launches", "ticks", "shield",
+                "device_busy_share")
+    print(json.dumps({"recovery": {
+        "card": smi, **{k: recovery[k] for k in (
+            "world", "world_s", "churn_s", "launches", "walk", "fallback",
+            "transitions_unfaulted")},
+        "kinds": {kind: {k: r[k] for k in (
+            "serving_tier_at_end", "faults_fired", "tier_log", "restart",
+            "snapshot_bytes", "capture_s", "persist_s", "attest_flagged",
+            "launches_ref", "launches_faulted")}
+            for kind, r in recovery["kinds"].items()},
+        "app_tpu_unshielded": {k: plain_app.get(k) for k in app_keys},
+        "app_tpu_shielded": {k: shield_app[k] for k in app_keys}}}))
     print(json.dumps({"cli": {"card": smi, **cli_run}}))
     print(json.dumps({"blast": {"card": smi, **blast}}))
     print(json.dumps({"live": {"card": smi, **live}}))

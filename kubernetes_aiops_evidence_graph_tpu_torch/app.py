@@ -211,6 +211,7 @@ class AiopsApp:
             self._loop.call_soon_threadsafe(self._loop.stop)
             self._loop_thread.join(timeout=5)
             self._loop = None
+        self.worker.close()
         try:
             if self.settings.graph_persist_path:
                 written = self.store.save(self.settings.graph_persist_path)

@@ -123,9 +123,34 @@ class Settings:
     scope_flight_dir: str = ""
     flight_dump_keep: int = 64
 
-    # --- not ported yet: any value but the default raises ---
-    # the crash shield (ROADMAP item 6)
+    # --- the crash shield (rca/shield.py) ---
+    # when enabled, the workflow worker wraps the resident scorer in a
+    # ShieldedScorer: every applied delta batch is write-ahead journaled
+    # (O(delta)) and the resident state snapshots every
+    # `shield_snapshot_every_ticks` caller boundaries, so a failure
+    # recovers via snapshot + journal-suffix replay, bit-identical and
+    # cheaper than a full rebuild
     shield_enabled: bool = False
+    shield_dir: str = ""                       # "" -> .kaeg_shield/<pid>
+    shield_snapshot_every_ticks: int = 512
+    # WAL group commit: every batch is written and flushed before it is
+    # applied; the fsync may be deferred up to this many batches (1 =
+    # strict)
+    shield_wal_fsync_every_ticks: int = 8
+    # a tick slower than this counts a watchdog trip and drops the
+    # pipeline to depth 1 (a launched kernel cannot be cancelled; the
+    # watchdog bounds recurrence)
+    shield_tick_timeout_s: float = 30.0
+    # bounded retry for transient faults: exponential backoff with
+    # deterministic seeded jitter (workflow/engine.RetryPolicy semantics)
+    shield_retry_attempts: int = 2
+    shield_retry_backoff_s: float = 0.05
+    # attestation at snapshot boundaries: a checksum fold of the resident
+    # node tables on the device against the host mirrors; a silently
+    # corrupted block is repaired in place from the host truth
+    mesh_attest: bool = True
+
+    # --- not ported yet: any value but the default raises ---
     # graph-sharded and data-parallel serving meshes (ROADMAP item 9)
     serve_graph_shards: int = 1
     mesh_dp: int = 1

@@ -28,6 +28,12 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch. Callers that degrade on
+    device faults (the crash shield's ladder) re-raise it: a broken kernel
+    is a defect to surface, never a fault to serve around."""
+
+
 def _nvcc() -> str:
     """nvcc from PATH, else from the toolkit PyTorch found (CUDA_HOME,
     CUDA_PATH or /usr/local/cuda)."""
@@ -35,7 +41,7 @@ def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or (
         os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "")
     if not (nvcc and os.access(nvcc, os.X_OK)):
-        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+        raise KernelError("nvcc not found: put it on PATH or set CUDA_HOME")
     return nvcc
 
 
@@ -84,7 +90,7 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("kernel build failed:\n" + "\n".join(failed))
     return report
 
 
@@ -99,6 +105,10 @@ def load(name: str) -> ctypes.CDLL:
             path = library_path(name)
             if not path.exists():
                 build_all((name,))
-            lib = ctypes.CDLL(str(path))
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as exc:
+                raise KernelError(f"{name}: cannot load {path}: {exc}") \
+                    from exc
             _libs[name] = lib
     return lib

@@ -46,7 +46,7 @@ from ..ops.fused_tick import (check_layout, check_quant, dma_node_block,
                               scatter_delta, split_ints)
 from ..ops.segment import as_dtype
 from ..rca import gnn
-from . import gms
+from . import _build, gms
 
 launches = 0
 """Launches of :func:`fused_gnn_tick` so far (one per tick); a run resets
@@ -62,7 +62,6 @@ _FEAT_TYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        from . import _build
         lib = _build.load("fused_tick")
         p, i = ctypes.c_void_p, ctypes.c_int
         pp = ctypes.POINTER(ctypes.c_void_p)
@@ -115,7 +114,7 @@ def _ptr(t: "torch.Tensor | None") -> "int | None":
 
 def _raise(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"fused_tick {what} launch failed: "
+        raise _build.KernelError(f"fused_tick {what} launch failed: "
                            + lib.fused_tick_error_string(rc).decode())
 
 

@@ -45,7 +45,7 @@ import torch
 
 from ..ops.segment import as_dtype
 from ..ops.segment import gather_matmul_segment as gather_matmul_segment_reference
-from . import grad_w
+from . import _build, grad_w
 
 launches = 0
 """Kernel launches so far (one per message pass); a run resets it to show
@@ -72,7 +72,6 @@ _runs_cache: dict = {}
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        from . import _build
         lib = _build.load("gms")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gms_launch.argtypes = [
@@ -225,7 +224,7 @@ def _launch(table: torch.Tensor, w: torch.Tensor, gather: torch.Tensor,
             num_segments, msg.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError("gms launch failed: "
+        raise _build.KernelError("gms launch failed: "
                            + lib.gms_error_string(rc).decode())
     launches += 1
     return out

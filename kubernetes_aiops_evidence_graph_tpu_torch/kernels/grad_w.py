@@ -39,6 +39,7 @@ import torch
 
 from ..ops.segment import as_dtype
 from ..ops.segment import gms_grad_w as gms_grad_w_reference
+from . import _build
 
 launches = 0
 """Kernel launches so far (one per weight gradient); a run resets it to show
@@ -64,7 +65,6 @@ _items_cache: dict = {}
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        from . import _build
         lib = _build.load("grad_w")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.grad_w_launch.argtypes = [
@@ -224,7 +224,7 @@ def gms_grad_w(
             per_item, num_rels, groups, partial.data_ptr(), dw.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError("grad_w launch failed: "
+        raise _build.KernelError("grad_w launch failed: "
                            + lib.grad_w_error_string(rc).decode())
     launches += 1
     return dw

@@ -49,6 +49,7 @@ from ..rca.ruleset import (
     UNKNOWN_CONFIDENCE,
     UNKNOWN_FINAL_SCORE,
 )
+from . import _build
 
 # chunk of the slot axis per fold step: bounds the [Pi, chunk, DIM]
 # intermediate of the plain version under per-incident skew
@@ -234,7 +235,6 @@ _lib: ctypes.CDLL | None = None
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        from . import _build
         lib = _build.load("rules_fold")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rules_fold_launch.argtypes = [
@@ -325,7 +325,7 @@ def rules_fold(features: torch.Tensor, ev_idx: torch.Tensor,
             top_idx.data_ptr(), any_match.data_ptr(), top_conf.data_ptr(),
             top_score.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError("rules_fold launch failed: "
+        raise _build.KernelError("rules_fold launch failed: "
                            + lib.rules_fold_error_string(rc).decode())
     launches += 1
     return conds, matched, scores, top_idx, any_match, top_conf, top_score

@@ -19,10 +19,15 @@ The port of the JAX package's ``learn/loop.py``. One cycle (``run_once``):
 5. **Watch**: the next cycle rolls back to the previous generation if a
    target quarantined batches since the swap.
 
+A ``FaultInjector`` (rca/faults.py) passed as ``injector`` fires at the
+``harvest`` and ``swap`` stages: a faulted cycle is contained, with the
+serving params and generation untouched. A target wrapped in the crash
+shield (rca/shield.py) journals each swap before it applies.
+
 Not ported yet: the Prometheus counters, the non-finite-verdict counter
-and the flight recorder's events (ROADMAP item 8), and the fault
-injector's harvest/swap stages (item 6); the learner's own counters
-(``cycles``, ``swaps``, ``rollbacks``, ``gate_rejects``) are here.
+and the flight recorder's events (ROADMAP item 8); the learner's own
+counters (``cycles``, ``swaps``, ``rollbacks``, ``gate_rejects``) are
+here.
 """
 from __future__ import annotations
 
@@ -43,9 +48,12 @@ class OnlineLearner:
     labels come from."""
 
     def __init__(self, db, targets, settings: "Settings | None" = None,
-                 now_s: "float | None" = None) -> None:
+                 now_s: "float | None" = None, injector=None) -> None:
         self.settings = settings or get_settings()
         self.db = db
+        # chaos seam (rca/faults.py LEARN_STAGES): the harvest/swap hooks
+        # prove a faulted learn cycle is CONTAINED
+        self.injector = injector
         # stable order — the atomic swap's deadlock-freedom rests on
         # every swapper acquiring serve_locks in one canonical order
         self.targets = list(targets if isinstance(targets, (list, tuple))
@@ -112,6 +120,8 @@ class OnlineLearner:
         already CLOSED replay from their persisted evidence instead
         (build_replay_episode). Returns the number of NEW (non-duplicate)
         episodes absorbed."""
+        if self.injector is not None:
+            self.injector.at("harvest")
         labels = harvest_labels(
             self.db, weak=bool(self.settings.learn_weak_labels),
             weak_confidence=float(self.settings.learn_weak_confidence))
@@ -191,6 +201,10 @@ class OnlineLearner:
     def swap(self, params, source: str = "finetune") -> int:
         """Atomic hot swap into every target (see module docstring);
         arms the post-swap health watch."""
+        if self.injector is not None:
+            # fires BEFORE any target swaps: a faulted swap leaves every
+            # tenant on the old generation
+            self.injector.at("swap")
         from ..rca.surge import swap_tenants_atomically
         gen = swap_tenants_atomically(self.targets, params, source=source)
         self.swaps += 1

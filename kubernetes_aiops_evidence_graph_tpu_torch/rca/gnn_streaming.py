@@ -188,6 +188,12 @@ class GnnStreamingScorer(StreamingScorer):
         # the packed GNN delta the staged slab carries this dispatch
         self._gnn_stage: "np.ndarray | None" = None
         self._last_gnn: "tuple | None" = None
+        # replayable mode (make_replayable): a node-removal cascade walks
+        # its edges in sorted order
+        self._replayable = False
+        # edge mirrors built from the store (construction, rebuilds and
+        # region overflows)
+        self.mirror_builds = 0
         super().__init__(store, cfg, now_s=now_s, device=dev)
 
     def _staged_extra_ints(self) -> "np.ndarray | None":
@@ -229,6 +235,7 @@ class GnnStreamingScorer(StreamingScorer):
         from their relation's free list, popped from the low end of the
         slice's free tail; a region out of slots falls back to a full
         re-mirror with re-derived capacities."""
+        self.mirror_builds += 1
         offs = self._mirror_offsets_now()
         num_rels = len(RelationKind)
         pn = self.snapshot.padded_nodes
@@ -376,9 +383,25 @@ class GnnStreamingScorer(StreamingScorer):
                 self._mirror_del((rec[2], rec[3], rec[4]))
             elif op == "node-":
                 # the store cascade-removes a node's edges without per-edge
-                # records; mirror the cascade from the adjacency
-                for key in list(self._node_edges.get(rec[2], ())):
+                # records; mirror the cascade from the adjacency. Its order
+                # sets the free lists': the set's own order, as the JAX
+                # package walks it, or sorted when replayable
+                keys = self._node_edges.get(rec[2], ())
+                for key in (sorted(keys) if self._replayable
+                            else list(keys)):
                     self._mirror_del(key)
+
+    def make_replayable(self) -> None:
+        """Make the order a node-removal cascade walks a function of the
+        applied journal alone, so that a state restored from a snapshot
+        evolves bit for bit as the live one would. A Python set iterates
+        in its table's order, which depends on its whole add/discard
+        history, and a set rebuilt from its elements (as unpickling
+        rebuilds it) can iterate in another; the cascade's order sets the
+        free lists. In this mode the cascade walks the keys sorted. The
+        crash shield turns this on; off (the default), the cascade walks
+        the set as the JAX package does."""
+        self._replayable = True
 
     def _pending_delta_count(self) -> int:
         # each pending edge entry is one directed slot in the packed delta
@@ -539,6 +562,7 @@ class GnnStreamingScorer(StreamingScorer):
         """GnnRcaBackend.score_snapshot-shaped raw dict for live incidents:
         one wait and one readback of the probs."""
         t2 = time.perf_counter()
+        self._fault_point("fetch")
         self._wait(handles)
         tick_gen, _logits, probs = handles.out
         with self._on_stream():
@@ -607,6 +631,71 @@ class GnnStreamingScorer(StreamingScorer):
             self._swap_params_locked(params, gen, source=source)
             self._params_prev = None
         return gen
+
+    # -- crash-shield seams (snapshot/restore) -----------------------------
+
+    _HOST_STATE_ATTRS = StreamingScorer._HOST_STATE_ATTRS + (
+        "_gnn_seq", "_rel_offsets",
+        "_edge_slot", "_node_edges", "_free_edge_slots", "_pending_edges",
+        # the generation/source stamp travels with the snapshot so a
+        # restore serves the generation it captured (the params VALUES
+        # ride in the packed device tensors below), and so does the
+        # quantized table's frozen scale
+        "params_generation", "_params_source", "_feat_scale_host",
+    )
+
+    _MIRROR_ARRAYS = 6   # kind/nmask + the four edge arrays
+
+    def _quant_arrays(self) -> list:
+        """The streamed tier's quantized table and its scale (none at
+        float32, the table alone for bf16, both for int8)."""
+        if not self._feat_quant:
+            return []
+        return [t for t in (self._features_q_dev, self._feat_scale_dev)
+                if t is not None]
+
+    def _resident_arrays(self) -> list:
+        # the serving params are part of the resident state: packing
+        # their leaves makes recovery restore the EXACT swapped checkpoint
+        # bit for bit, with no reload from a checkpoint file that may have
+        # moved on; the quantized table rides along so its frozen scale
+        # and in-place rows come back as they were
+        return super()._resident_arrays() + [
+            self._kind_dev, self._nmask_dev, self._esrc_dev,
+            self._edst_dev, self._erel_dev, self._emask_dev,
+            *self._quant_arrays(),
+            *gnn.flat_params(self._params).values()]
+
+    def _adopt_resident(self, parts: list) -> None:
+        super()._adopt_resident(parts)
+        m = 4 + self._MIRROR_ARRAYS
+        (self._kind_dev, self._nmask_dev, self._esrc_dev, self._edst_dev,
+         self._erel_dev, self._emask_dev) = parts[4:m]
+        keys = list(gnn.flat_params(self._params))
+        nq = len(parts) - m - len(keys)
+        want = {"": 0, "bfloat16": 1}.get(self._feat_quant, 2)
+        if nq != want:
+            raise RuntimeError(
+                f"snapshot carries {nq} quantized-table tensors; this "
+                f"scorer's gnn_feature_quant={self._feat_quant!r} needs "
+                f"{want}")
+        if nq:
+            self._features_q_dev = parts[m]
+            self._feat_scale_dev = parts[m + 1] if nq > 1 else None
+        # leaves packed after the mirrors: the CURRENT tree's keys (same
+        # model config by construction: the shield matches the class)
+        self._params = gnn.unflat_params(dict(zip(keys, parts[m + nq:])))
+        self._params_prev = None
+        self._last_gnn = None
+        self._dma_h = None   # scratch: shapes may differ after a restore
+
+    def _attest_arrays(self) -> list:
+        # the aux mirrors are node-addressed with exact host truth; the
+        # edge regions are not attested (their slot layout is allocation
+        # history, not mirrored row by row on the host)
+        return super()._attest_arrays() + [
+            ("_kind_dev", self.snapshot.node_kind),
+            ("_nmask_dev", self.snapshot.node_mask)]
 
     # -- introspection (tests) ---------------------------------------------
 

@@ -156,6 +156,12 @@ class FeatureStage:
         """Staged node rows, in slot order (first staging order)."""
         return self._idx[:self._n].tolist()
 
+    def overlay(self, table: np.ndarray) -> None:
+        """Write the staged rows into ``table`` (a ``[Pn, DIM]`` host
+        mirror) at their node rows: the host mirror of a staged row is
+        its staged value."""
+        table[self._idx[:self._n]] = self._rows[:self._n]
+
     def drain_into(self, idx_out: np.ndarray, rows_out: np.ndarray,
                    sentinel: int) -> int:
         """Copy the staged columns into the tick's padded delta views
@@ -267,8 +273,13 @@ class StreamingScorer:
         self._serve_result: dict | None = None
         # the rules fold has no learned params; verdicts carry generation 0
         self.params_generation = 0
-        # when set, staged feature rows are isfinite-checked (O(delta))
-        # before they are copied into the resident state
+        # crash-shield seams: when a FaultInjector (rca/faults.py) is
+        # attached, the tick consults it at each named stage (None, the
+        # default, costs one attribute read per hook). The ShieldedScorer
+        # (rca/shield.py) attaches one and turns finite_delta_guard on:
+        # staged feature rows are then isfinite-checked (O(delta)) before
+        # they are copied into the resident state
+        self.fault_injector = None
         self.finite_delta_guard = False
         # absorb(): busy yields, and the synchronous drains past the
         # journal-backlog bound
@@ -888,7 +899,17 @@ class StreamingScorer:
         """Flush pending deltas and enqueue one scoring pass; returns the
         seven device outputs without a host fetch."""
         slab, f_rows, li, pk, rk, gi, f_live, r_live = self._staged_delta()
-        self._screen_delta(f_rows[:f_live])
+        # fault seams: value poisoning lands on the STAGED rows inside the
+        # slab the device reads (the host mirror stays clean: store
+        # truth), and the dispatch and pack faults fire after the pending
+        # deltas were drained into the slab, so a bare retry cannot
+        # restage them: only a journal replay can
+        poisoned = self._fault_value("delta_values", f_rows)
+        if poisoned is not f_rows:
+            f_rows[...] = poisoned
+        self._screen_delta(f_rows)
+        self._fault_point("dispatch")
+        self._fault_point("pack")
         dim = self.snapshot.features.shape[1]
         with self._on_stream():
             slab_dev = slab.host.to(self.device, non_blocking=True)
@@ -898,16 +919,111 @@ class StreamingScorer:
             out = _tick(self._features_dev, ints, rows, self._ev_idx_dev,
                         self._ev_cnt_dev, self._pair_dev, self._chain0,
                         self.pair_width, pk, rk, self.width, f_live, r_live)
+        # a device error mid-pipeline: the resident tensors were already
+        # updated in place and may be poisoned; then a fault localized to
+        # one shard of the resident state
+        self._fault_point("execute")
+        self._fault_point("shard_loss")
         self.dispatches += 1
         return out
 
     def _screen_delta(self, f_rows: np.ndarray) -> None:
-        """Finite guard over the staged feature rows, after the pending
-        deltas were drained and before they reach the resident state."""
+        """Finite guard over the staged feature rows (the padded delta:
+        its padding rows are zeros), after the pending deltas were drained
+        and before they reach the resident state."""
         if self.finite_delta_guard and not np.isfinite(f_rows).all():
             raise NonFiniteDelta(
                 f"{int((~np.isfinite(f_rows)).any(axis=-1).sum())} "
                 "non-finite staged feature rows")
+
+    # -- crash-shield seams (fault injection + snapshot/restore) -----------
+
+    def _fault_point(self, stage: str) -> None:
+        inj = self.fault_injector
+        if inj is not None:
+            inj.at(stage, self)
+
+    def _fault_value(self, stage: str, value: np.ndarray) -> np.ndarray:
+        inj = self.fault_injector
+        if inj is not None:
+            return inj.poison(stage, value)
+        return value
+
+    def make_replayable(self) -> None:
+        """Called by the crash shield before its first snapshot: keep every
+        order-bearing host structure a function of the applied journal
+        alone. The rules scorer's sets are only ever walked in an order
+        that does not matter (each row it visits is rebuilt on its own);
+        the learned scorer overrides this."""
+
+    # Host-authoritative attributes a state snapshot must carry: together
+    # with the resident device tensors they reproduce the scorer exactly
+    # (free lists included: replayed mutations must allocate the same
+    # rows for bit-identical recovery). An explicit tuple, so the shield
+    # can pickle and restore without knowing the scorer's internals.
+    _HOST_STATE_ATTRS: tuple[str, ...] = (
+        "snapshot", "width", "pair_width", "_synced_seq",
+        "_node_ids", "_id_to_idx", "_free_node_rows",
+        "_inc_row_of", "_row_inc", "_free_inc_rows",
+        "_pod_node", "_sched_pods",
+        "_row_nodes", "_row_pairs", "_pair_map", "_ev_rows_of_node",
+        "_pending_feat", "_dirty_rows",
+    )
+
+    def capture_host_state(self) -> dict:
+        """References to the host-side serving state (the shield pickles
+        them at once, under ``serve_lock``, so later mutation cannot leak
+        into the snapshot).
+
+        The GraphSnapshot is captured SLIM: ``features`` is dropped (the
+        resident feature tensor, which the snapshot packs, holds the same
+        bits apart from the staged rows, which the staged delta carries;
+        restore re-stitches the mirror from both) and so are the edge
+        arrays (read only by ``_init_from_store``)."""
+        d = {k: getattr(self, k) for k in self._HOST_STATE_ATTRS}
+        d["snapshot"] = dataclasses.replace(
+            self.snapshot,
+            features=np.zeros((0, self.snapshot.features.shape[1]),
+                              np.float32),
+            edge_src=np.zeros(0, np.int32), edge_dst=np.zeros(0, np.int32),
+            edge_rel=np.zeros(0, np.int32),
+            edge_mask=np.zeros(0, np.float32))
+        return d
+
+    def restore_host_state(self, state: dict) -> None:
+        """Adopt a deserialized host-state dict (fresh objects from
+        pickle, never shared with a live scorer). The feature mirror is
+        re-stitched by :meth:`_adopt_resident`."""
+        for k in self._HOST_STATE_ATTRS:
+            setattr(self, k, state[k])
+        self._inflight.clear()
+
+    def _resident_arrays(self) -> list:
+        """The device-resident tensors a snapshot packs, in a fixed order
+        matching :meth:`_adopt_resident`. Subclasses extend the list."""
+        return [self._features_dev, self._ev_idx_dev, self._ev_cnt_dev,
+                self._pair_dev]
+
+    def _adopt_resident(self, parts: list) -> None:
+        """Install unpacked device tensors as the resident state (caller is
+        on the scorer's stream) and re-stitch the host feature mirror from
+        the restored feature tensor plus the staged rows (a staged row's
+        mirror is its staged value; every other row's is the device's)."""
+        (self._features_dev, self._ev_idx_dev, self._ev_cnt_dev,
+         self._pair_dev) = parts[:4]
+        if self.snapshot.features.size == 0:
+            feats = self._features_dev.cpu().numpy().copy()
+            self._pending_feat.overlay(feats)
+            self.snapshot = dataclasses.replace(self.snapshot,
+                                                features=feats)
+        self._chain0 = torch.zeros(self.snapshot.padded_incidents,
+                                   dtype=torch.float32, device=self.device)
+
+    def _attest_arrays(self) -> list:
+        """(device attribute, host-truth mirror) pairs the attestation
+        fold covers: node-addressed resident tensors whose host copies
+        hold the same bits. Subclasses extend the list."""
+        return [("_features_dev", self.snapshot.features)]
 
     # -- pipelined executor ------------------------------------------------
     #
@@ -1139,6 +1255,7 @@ class StreamingScorer:
         """One wait for a tick's outputs and their readback → the
         caller-facing raw verdict dict."""
         t2 = time.perf_counter()
+        self._fault_point("fetch")
         self._wait(handles)
         with self._on_stream():
             fetched = tuple(t.cpu().numpy() for t in handles.out)

@@ -19,7 +19,7 @@ import sqlite3
 import threading
 from datetime import datetime
 from typing import Any, Optional
-from uuid import UUID
+from uuid import UUID, uuid4
 
 from ..models import (
     Hypothesis,
@@ -225,9 +225,11 @@ class Database:
         self._lock = threading.RLock()
         # unique per instance: a fixed name would alias every ":memory:"
         # Database in the process onto one shared-cache DB (cross-instance
-        # lock collisions; latent bug found via concurrent API tests)
+        # lock collisions; latent bug found via concurrent API tests). Not
+        # id(self): a new instance can reuse a freed one's id while a
+        # surviving cursor keeps that one's shared cache alive
         self._memory_uri = (
-            f"file:kaeg_mem_{id(self)}?mode=memory&cache=shared"
+            f"file:kaeg_mem_{uuid4().hex}?mode=memory&cache=shared"
             if path == ":memory:" else None
         )
         # keep one anchoring connection so a shared in-memory DB survives

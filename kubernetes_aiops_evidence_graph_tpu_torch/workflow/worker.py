@@ -13,8 +13,9 @@ re-executing completed steps.
 
 The port's copy serves from the port's scorers on the worker's device
 (``device=None`` is the CUDA device and raises without one; the tests
-pass ``"cpu"``). It starts no warm thread: a hand kernel compiles once,
-so the JAX package's warm paths have no counterpart. Settings whose
+pass ``"cpu"``), wrapped in the crash shield (``rca/shield.py``) when
+``shield_enabled``. It starts no warm thread: a hand kernel compiles
+once, so the JAX package's warm paths have no counterpart. Settings whose
 backing module is not ported yet raise ``NotImplementedError`` naming
 their ROADMAP item (``check_ported``).
 """
@@ -62,10 +63,6 @@ def check_ported(settings: Settings, surge: Any = None) -> None:
         raise NotImplementedError(
             "a multi-tenant surge fleet (rca/surge.py SurgeServer) is not "
             "ported yet: ROADMAP item 7")
-    if settings.shield_enabled:
-        raise NotImplementedError(
-            "shield_enabled: the crash shield (rca/shield.py) is not "
-            "ported yet: ROADMAP item 6")
     if int(settings.mesh_dp) > 1 or int(settings.serve_graph_shards) > 1:
         raise NotImplementedError(
             f"mesh_dp={settings.mesh_dp}, serve_graph_shards="
@@ -119,19 +116,37 @@ class IncidentWorker:
         """Lazily build the shared resident scorer on the worker's device:
         StreamingScorer for rca_backend=tpu (kernels/rules_fold),
         GnnStreamingScorer for rca_backend=gnn (kernels/gms and the
-        serving ticks)."""
+        serving ticks), wrapped in the crash shield when
+        ``shield_enabled``."""
         if self.settings.rca_backend not in ("tpu", "gnn"):
             return None
         with self._scorer_lock:
             if self.scorer is None:
                 if self.settings.rca_backend == "gnn":
-                    self.scorer = self._build_gnn_scorer()
+                    scorer = self._build_gnn_scorer()
                 else:
                     from ..rca.streaming import StreamingScorer
-                    self.scorer = StreamingScorer(
+                    scorer = StreamingScorer(
                         self.builder.store, self.settings,
                         device=self.device)
+                if self.settings.shield_enabled:
+                    # the crash-consistent recovery layer: on acquisition
+                    # either restore a compatible on-disk snapshot+journal
+                    # (a prior shield of THIS store lineage, e.g. a
+                    # restarted serve loop in the same process) or anchor a
+                    # fresh snapshot so recovery is possible from tick one
+                    from ..rca.shield import ShieldedScorer
+                    scorer = ShieldedScorer(scorer, self.settings)
+                    scorer.recover_or_snapshot()
+                self.scorer = scorer
             return self.scorer
+
+    def close(self) -> None:
+        """Join the shield's snapshot writer and close its journal (a no-op
+        for an unshielded scorer)."""
+        close = getattr(self.scorer, "close", None)
+        if close is not None:
+            close()
 
     def _build_gnn_scorer(self):
         """GnnStreamingScorer, or the RULES serving tier when the

@@ -235,7 +235,8 @@ def test_worker_serving_scorer_is_the_ports(backend, cls):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(shield_enabled=True), "item 6"), (dict(mesh_dp=2), "item 9"),
+    (dict(shield_enabled=True, mesh_dp=2), "item 9"),
+    (dict(mesh_dp=2), "item 9"),
     (dict(serve_graph_shards=2), "item 9"), ("surge", "item 7")])
 def test_unported_settings_raise_and_name_their_item(override, item):
     db = t_storage.Database(":memory:")
