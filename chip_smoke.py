@@ -173,7 +173,31 @@ the learned model's training, offline (``rca/train.py``) and online
    back; a ``{"recovery": {...}}`` line (snapshot bytes, capture and
    persist seconds, the restart's recover seconds and records replayed,
    the transitions, launches by kernel, both apps' numbers);
-16. prints a ``{"gms_compare": {...}}`` line (the message pass split by
+16. observability on the card (``run_observability``, ROADMAP item 8):
+   the card's anchors from ``rca/device_metrics`` (device-memory rate
+   over a 512 MiB buffer, bf16 ``[8192, 8192]`` products, one fetch),
+   each held at most 105% of its data-sheet ceiling; B1 at config 3
+   timed device-only (64..256 chained passes in one CUDA graph) and as
+   chained dispatches, the graph's last pass equal to one dispatch bit
+   for bit, beside phase 4's profiler time; the learned forward at config
+   3 the same way (gms launched L times a forward); the config-4 churn
+   (2,000 events in ticks of 100 through ``tick_async``, a
+   ``serve(newest=True)`` every 5 ticks, the last under a trace) for the
+   rules scorer and the composed, fused and streamed float32 tiers with
+   the scope on, and the rules scorer and the composed tier again with it
+   off, all on one store: one flight record a tick with its stages in
+   order, the ``serve.tick`` span tiled by its ``tick.*`` children within
+   5%, the roofline gauges (modeled bytes equal to ``tick_cost`` at the
+   tick's shapes, achieved bytes/s above 0 and at most 105% of 3.35
+   TB/s, drift in (0, 1], halo 0), each kernel launched once a tick (gms
+   L times), the verdicts and packed state with the scope on equal to
+   those with it off; ``observability.device_trace`` over three ticks of
+   each scorer naming every kernel the wrappers counted, as often; the
+   scope's cost a tick (microbench) and the dispatch p50 on and off,
+   printed; the online learner's ``aiops_learn_*`` counters of phase 10
+   (fine-tune steps, swaps and generation checked there). An
+   ``{"observability": {...}}`` line;
+17. prints a ``{"gms_compare": {...}}`` line (the message pass split by
    kernel at config 3, forward and dh, and config 4; the hub probe; the
    learned forward, the train step, the ticks per tier, each split by
    kernel, and learned events/s; ``grad_w`` per launch at the trainer's
@@ -213,8 +237,13 @@ import uuid
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
-F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+def ceilings() -> tuple[float, float]:
+    """(device-memory bytes/s, float32 operations/s) of an H100 SXM, from
+    the port's ``rca/device_metrics`` (the data sheet's figures), which the
+    bounds divide by."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import device_metrics
+    return (device_metrics.H100_HBM_BYTES_PER_S,
+            device_metrics.H100_F32_FLOP_PER_S)
 
 
 def log(*a) -> None:
@@ -484,9 +513,9 @@ def timed(kernel, plain, plain_iters: int = 10) -> dict:
     return t
 
 
-def bound_of(nbytes: int, ops: int, flop_per_s: float = F32_FLOP_PER_S
-             ) -> dict:
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+def bound_of(nbytes: int, ops: int) -> dict:
+    bytes_per_s, flop_per_s = ceilings()
+    bytes_ms = nbytes / bytes_per_s * 1e3
     ops_ms = ops / flop_per_s * 1e3
     return {"bound_bytes": nbytes, "bound_ops": ops,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -1374,7 +1403,7 @@ def tick_timing(scorer, check: str) -> dict:
                  ek=ek, pi=pi, feat_quant=quant, dma=entry == "dma")
     t.update(bound_of(b["bytes"], b["ops"]))
     t["floor_bytes"] = b["floor_bytes"]
-    t["floor_ms"] = b["floor_bytes"] / HBM_BYTES_PER_S * 1e3
+    t["floor_ms"] = b["floor_bytes"] / ceilings()[0] * 1e3
     t["live_edges"] = live
     return t
 
@@ -2031,6 +2060,22 @@ def fused_backward_check(scorer) -> dict:
             "launches": launched, "dma_raised": raised}
 
 
+def learn_counters() -> dict:
+    """The learner's ``aiops_learn_*`` series, as ``/metrics`` shows them."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.observability import (
+        metrics as m)
+    return {"train_steps": m.LEARN_TRAIN_STEPS.value(),
+            "swaps": m.LEARN_SWAPS.value(),
+            "rollbacks": m.LEARN_ROLLBACKS.value(),
+            "gate_rejects": m.LEARN_GATE_REJECTS.value(),
+            "generation": m.LEARN_GENERATION.value(),
+            "buffer_size": m.LEARN_BUFFER_SIZE.value(),
+            "eval_top1": {p: m.LEARN_EVAL_TOP1.value(params=p)
+                          for p in ("candidate", "serving")},
+            "episodes_harvested": {dict(k).get("source", ""): v for k, v in
+                                   m.LEARN_EPISODES_HARVESTED._values.items()}}
+
+
 def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
                        seed: int = 0) -> dict:
     """OnlineLearner.run_once() on the config-4 world: a resident learned
@@ -2086,6 +2131,7 @@ def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
         candidates.append(res["params"])
         return res
     learner.train_candidate = timed_candidate
+    learn0 = learn_counters()
     with recorded_steps(trainer, "make_finetune_step", 4) as (entries, make):
         reset_counts()
         t0 = time.perf_counter()
@@ -2093,10 +2139,20 @@ def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
         torch.cuda.synchronize()
         cycle_s = time.perf_counter() - t0
         counts = read_counts()
+    learn1 = learn_counters()
     steps = int(settings.learn_steps)
     if not (out["harvested"] >= 1 and out["trained"]
             and out["train_steps"] == steps and "gate" in out):
         raise AssertionError(f"online learner: {out}")
+    # the learner's counters follow its steps and its swap
+    moved = {k: learn1[k] - learn0[k] for k in ("train_steps", "swaps",
+                                                "rollbacks", "gate_rejects")}
+    if moved["train_steps"] != out["train_steps"] or moved["swaps"] != int(
+            out["swapped"]) or (out["swapped"] and learn1["generation"]
+                                != out["generation"]):
+        raise AssertionError(f"online learner counters {learn0} -> {learn1} "
+                             f"for {out['train_steps']} fine-tune steps, "
+                             f"swapped={out['swapped']}")
     if counts["grad_w"] < 3 * steps:
         raise AssertionError(f"online learner: launches {counts} for "
                              f"{steps} fine-tune steps")
@@ -2106,7 +2162,9 @@ def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
            "cycle_s": cycle_s, "finetune_s": tune_s[0],
            "finetune_ms_per_step": tune_s[0] / steps * 1e3,
            "grad_w": grad_w_at_steps(entries, make, 4, candidates[0],
-                                     "config4_learner")}
+                                     "config4_learner"),
+           "learn_counters": {"before": learn0, "after": learn1,
+                              "moved": moved}}
     if out["swapped"]:
         served = scorer.rescore()
         if served["params_generation"] != 1 or out["generation"] != 1:
@@ -3357,6 +3415,412 @@ def run_recovery(dev, num_pods: int = 10_000, num_incidents: int = 100,
     return res
 
 
+# -- 16. observability on the card --------------------------------------
+
+STAGE_ORDER = ("queue_wait", "pack", "staging", "dispatch", "gnn_dispatch",
+               "execute", "fetch")
+"""A tick record's stages, in the order the scorer stamps them."""
+OBS_TIERS = ("rules", "composed", "fused", "dma")
+"""The scorers phase 16 drives under the scope: the rules scorer and the
+learned scorer's float32 tiers."""
+ANCHOR_LIMIT = 1.05
+"""A measured anchor or achieved rate above this share of its data-sheet
+ceiling means the timer (or the modeled work) is wrong."""
+
+
+def scope_cost_us(scorer, reps: int = 2000) -> float:
+    """Per-tick cost in µs of the scope's exact per-tick operations on
+    this scorer (the microbench of tests/test_torch_scope_overhead.py): one
+    tick in ten is a fetched caller boundary."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.observability.scope import (
+        ROOFLINE)
+    scope, snap = scorer.scope, scorer.snapshot
+
+    def one_tick(fetched: bool):
+        sp = scope.begin(scorer)
+        sp.pending = 3
+        sp.coalesced = scorer._scope_coalesced_since
+        sp.params_gen = scorer.params_generation
+        sp.mark("pack")
+        sp.mark("staging")
+        ROOFLINE.model(scorer._scope_entry, scorer._scope_key,
+                       lambda: {"pn": snap.padded_nodes,
+                                "pi": snap.padded_incidents,
+                                "width": scorer.width, "pk": 16, "rk": 8,
+                                "dim": 48},
+                       pack=scorer._scope_pack)   # cache hit
+        sp.batch_incidents = 1
+        sp.tenants = 1
+        sp.mark("dispatch")
+        sp.mark("execute")
+        if fetched:
+            scorer._scope_fetched(sp)
+        else:
+            scorer._inflight_meta.append(sp)
+            scorer._retire_meta()
+
+    t0 = time.perf_counter()
+    for i in range(reps):
+        one_tick(i % 10 == 9)
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def scope_records(scorer, calls: list) -> list:
+    """The flight records ``scorer`` left: ``calls`` holds the ring's
+    (length before, length after) around each of its calls."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.observability.scope import (
+        FLIGHT_RECORDER)
+    snap = FLIGHT_RECORDER.snapshot()
+    return [r for lo, hi in calls for r in snap[lo:hi]]
+
+
+def check_tick_records(recs: list, dispatched: int, what: str) -> int:
+    """Each dispatched tick left exactly one record (tick ids unique, one
+    per dispatch) and its stages are in the order the scorer stamps them,
+    ``pack``, ``staging`` and ``dispatch`` always among them. Returns the
+    fetched ticks."""
+    ticks = [r for r in recs if "tick" in r]
+    ids = [r["tick"] for r in ticks]
+    if len(ids) != len(set(ids)) or len(ids) != dispatched:
+        raise AssertionError(f"{what}: {len(ids)} tick records "
+                             f"({len(set(ids))} ids) for {dispatched} ticks")
+    for r in ticks:
+        stages = list(r["stages_ms"])
+        order = [STAGE_ORDER.index(x) for x in stages]
+        if order != sorted(order) or not {"pack", "staging",
+                                          "dispatch"} <= set(stages):
+            raise AssertionError(f"{what}: tick {r['tick']} stages {stages}")
+        if {"abandoned", "nonfinite_delta"} & set(r["flags"]):
+            raise AssertionError(f"{what}: tick {r['tick']} flagged "
+                                 f"{r['flags']}")
+    return sum(r["fetched"] for r in ticks)
+
+
+def trace_kernel_counts(trace_path: str) -> dict:
+    """Kernel launches a Chrome trace names, by the kernel each wrapper
+    launches exactly once a call: ``rules_fold_kernel`` (rules_fold),
+    ``gms_segment_kernel`` (gms), ``embed_kernel`` (fused_tick and
+    fused_tick_dma); beside them every kernel it names and every launch
+    call on the host it records."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    out = {k: sum(k in n for n in names) for k in (
+        "rules_fold_kernel", "gms_segment_kernel", "embed_kernel")}
+    out["all_kernels"] = len(names)
+    out["launch_calls"] = sum("LaunchKernel" in e.get("name", "")
+                              for e in events)
+    return out
+
+
+def run_observability(dev, snapshot, c3_backend, b1_profiler_ms: float,
+                      num_pods: int = 10_000, num_incidents: int = 100,
+                      events: int = 2000, batch_size: int = 100,
+                      seed: int = 0) -> dict:
+    """Phase 16 (ROADMAP item 8): the device-side instruments on the card.
+
+    * anchors: device-memory and bf16 product rates and one fetch, each
+      held under 105% of its data-sheet ceiling;
+    * B1 at config 3: the device-only time a pass (a CUDA graph of chained
+      passes) against the chained-dispatch time, the graph's last pass
+      equal to one dispatch bit for bit; the learned forward the same way
+      (B2, L launches a forward);
+    * the tick scope over config-4 churn (2,000 events in ticks of 100
+      through ``tick_async`` and ``serve(newest=True)``) for the rules
+      scorer and the learned float32 tiers, with a twin scorer with the
+      telemetry off for the rules scorer and the composed tier on the same
+      store: one record a tick in stage order, ``serve.tick`` spans tiled
+      by their ``tick.*`` children within 5%, the roofline gauges (modeled
+      bytes = ``tick_cost``, achieved bytes/s in (0, 105%] of the ceiling,
+      drift in (0, 1], no halo), verdicts and packed state equal with the
+      telemetry on and off;
+    * ``device_trace`` over three ticks of each scorer names every kernel
+      the wrappers counted, as often as they counted it;
+    * the telemetry's cost, printed: the scope's per-tick operations
+      (microbench) and the dispatch p50 with it on and off."""
+    import tempfile
+
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch import observability
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph.schema import DIM
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms
+    from kubernetes_aiops_evidence_graph_tpu_torch.observability import (
+        metrics as m)
+    from kubernetes_aiops_evidence_graph_tpu_torch.observability.scope import (
+        FLIGHT_RECORDER, ROOFLINE)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import device_metrics as dm
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
+        GnnStreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
+        StreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        churn_events, store_step)
+    t_phase = time.perf_counter()
+
+    # -- anchors -------------------------------------------------------------
+    anchors = {"hbm_gbps": dm.measure_hbm_gbps(device=dev),
+               "bf16_tflops": dm.measure_matmul_tflops(device=dev),
+               "fetch_rtt_ms": dm.measure_fetch_rtt_ms(device=dev),
+               "ceiling_hbm_gbps": dm.H100_HBM_GBPS,
+               "ceiling_bf16_tflops": dm.H100_BF16_TFLOPS,
+               "ceiling_f32_tflops": dm.H100_F32_TFLOPS}
+    if (anchors["hbm_gbps"] > ANCHOR_LIMIT * dm.H100_HBM_GBPS
+            or anchors["bf16_tflops"] > ANCHOR_LIMIT * dm.H100_BF16_TFLOPS):
+        raise AssertionError(f"anchors above their ceilings: {anchors}")
+    log(f"anchors: {anchors}")
+
+    def roofline(cost: dict, seconds: "float | None") -> "dict | None":
+        if not seconds or seconds <= 0:
+            return None
+        return dm.roofline_record(cost["bytes"], cost["flops"], seconds,
+                                  anchors["hbm_gbps"], dm.H100_F32_TFLOPS)
+
+    # -- B1 at config 3: device-only against chained dispatch ---------------
+    batch = c3_backend.prepared(snapshot)
+    args = c3_backend.device_arrays(snapshot)
+    with kept_counts():
+        b1 = dm.measure_scan_per_pass_s(batch, args)
+        last = dm.loop_score(args, batch.pair_width, 64)
+        one = c3_backend.dispatch(snapshot)
+        torch.cuda.synchronize()
+    for name, a, b in zip(("conds", "matched", "scores", "top_idx",
+                           "any_match", "top_conf", "top_score"), last, one):
+        if not torch.equal(a, b):
+            raise AssertionError(f"B1 graph: the last of 64 chained passes "
+                                 f"differs from one dispatch in {name}")
+    if b1["method"] != "cuda_graph" or b1["device_s_per_pass"] <= 0:
+        raise AssertionError(f"B1 graph slope: {b1}")
+    fold = dm.fold_accounting(batch.padded_incidents, batch.ev_idx.shape[1],
+                              batch.pair_width, DIM)
+    b1.update(
+        device_ms_per_pass=b1["device_s_per_pass"] * 1e3,
+        dispatch_ms_per_pass=b1["dispatch_s_per_pass"] * 1e3,
+        overhead_ms_per_dispatch=b1["overhead_s_per_dispatch"] * 1e3,
+        profiler_ms_per_pass_phase4=b1_profiler_ms,
+        roofline_device=roofline(fold, b1["device_s_per_pass"]),
+        roofline_dispatch=roofline(fold, b1["dispatch_s_per_pass"]),
+        last_pass_equals_dispatch=True)
+    log(f"B1 config 3: device-only {b1['device_ms_per_pass']:.5f} ms a pass "
+        f"(graph), chained dispatch {b1['dispatch_ms_per_pass']:.5f} ms, "
+        f"overhead {b1['overhead_ms_per_dispatch']:.5f} ms a dispatch; "
+        f"profiler {b1_profiler_ms} ms (phase 4)")
+
+    # -- the learned forward at config 3 (B2) --------------------------------
+    params = shipped_params(dev)
+    layers = len(params["layers"])
+    gb = gnn.snapshot_batch(snapshot)
+    with kept_counts():
+        reset_counts()
+        with torch.no_grad():
+            gnn.forward_batch(params, gb)
+        torch.cuda.synchronize()
+        per_forward = gms.launches
+        fwd = dm.measure_gnn_forward_per_pass_s(params, gb)
+        probe_launches = gms.launches - per_forward
+    if per_forward != layers or probe_launches <= 0 or \
+            probe_launches % layers:
+        raise AssertionError(f"forward: {per_forward} gms launches a forward "
+                             f"({layers} layers), {probe_launches} in the "
+                             "probe")
+    offs = tuple(snapshot.rel_offsets)
+    fcost = dm.tick_cost(
+        "streaming.gnn_tick.bucketed", pn=snapshot.padded_nodes,
+        pi=snapshot.padded_incidents, pe=int(offs[-1]), pk=0, ek=0,
+        hidden=int(params["embed_b"].shape[0]), layers=layers)
+    fwd.update(
+        gms_launches_per_forward=per_forward,
+        device_ms_per_pass=(fwd["device_s_per_pass"] or 0.0) * 1e3,
+        dispatch_ms_per_pass=fwd["dispatch_s_per_pass"] * 1e3,
+        overhead_ms_per_dispatch=(fwd["overhead_s_per_dispatch"] or 0.0)
+        * 1e3,
+        roofline_device=roofline(fcost, fwd["device_s_per_pass"]),
+        roofline_dispatch=roofline(fcost, fwd["dispatch_s_per_pass"]))
+    log(f"forward config 3 ({fwd['method']}): device-only "
+        f"{fwd['device_ms_per_pass']:.4f} ms, chained dispatch "
+        f"{fwd['dispatch_ms_per_pass']:.4f} ms, {per_forward} gms launches "
+        "a forward")
+
+    # -- the tick scope over config-4 churn ----------------------------------
+    settings, cluster, builder, _ = streaming_world(num_pods, num_incidents,
+                                                    seed)
+    # a ring that holds the whole phase, so each scorer's records are the
+    # slices appended during its own calls
+    settings = dataclasses.replace(settings, scope_flight_records=1 << 16)
+    now_s = cluster.now.timestamp()
+    learned_params = params_to(params, dev)
+    scorers: dict[str, object] = {}
+    for key in OBS_TIERS + ("rules_off", "composed_off"):
+        tier = key.removesuffix("_off")
+        cfg = dataclasses.replace(settings, scope_telemetry=not key.endswith(
+            "_off"), **LEARNED_TIERS.get(tier, {}))
+        scorers[key] = (StreamingScorer(builder.store, cfg, now_s=now_s,
+                                        device=dev)
+                        if tier == "rules" else
+                        GnnStreamingScorer(builder.store, cfg,
+                                           params=learned_params,
+                                           now_s=now_s, device=dev))
+        scorers[key].rescore()
+    stream = list(churn_events(
+        cluster, events, seed=seed + 1,
+        incident_ids=tuple(builder.store.incident_ids())))
+    calls = {k: [] for k in scorers}
+    dispatch_s = {k: [] for k in scorers}
+    d0 = {k: s.dispatches for k, s in scorers.items()}
+    ring = lambda: len(FLIGHT_RECORDER._ring)
+    observability.TRACER.clear()
+    traced = {}
+    n_ticks = 0
+    reset_counts()
+    for start in range(0, len(stream), batch_size):
+        for ev in stream[start:start + batch_size]:
+            store_step(cluster, builder.store, ev)
+        n_ticks += 1
+        serve_now = n_ticks % 5 == 0
+        for key, s in scorers.items():
+            lo = ring()
+            s.sync()
+            t0 = time.perf_counter()
+            st = s.tick_async()
+            if st["dispatched"]:
+                dispatch_s[key].append(time.perf_counter() - t0)
+            if serve_now:
+                with observability.TRACER.span("chip.serve",
+                                               scorer=key) as root:
+                    s.serve(newest=True)
+                traced[key] = root.trace_id
+            calls[key].append((lo, ring()))
+    torch.cuda.synchronize()
+    finals = {}
+    for key, s in scorers.items():
+        lo = ring()
+        finals[key] = s.rescore()
+        calls[key].append((lo, ring()))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ticks_of = {k: s.dispatches - d0[k] for k, s in scorers.items()}
+    want = {"rules_fold": sum(ticks_of.values()),
+            "gms": layers * (ticks_of["composed"] + ticks_of["composed_off"]),
+            "fused_tick": ticks_of["fused"], "fused_tick_dma": ticks_of["dma"],
+            "grad_w": 0}
+    if launches != want:
+        raise AssertionError(f"scope churn: launches {launches} for ticks "
+                             f"{ticks_of}, expected {want}")
+
+    # on and off: the same verdicts and packed state, bit for bit
+    bits = {}
+    for tier in ("rules", "composed"):
+        bit_equal_verdicts(finals[tier], finals[f"{tier}_off"],
+                           f"scope on/off {tier}")
+        on_d, off_d = (packed_digest(scorers[tier]),
+                       packed_digest(scorers[f"{tier}_off"]))
+        if on_d != off_d:
+            raise AssertionError(f"scope on/off {tier}: packed state differs")
+        bits[tier] = {"verdicts_equal": True, "packed_digest": on_d}
+    for key in ("rules_off", "composed_off"):
+        if scope_records(scorers[key], calls[key]):
+            raise AssertionError(f"{key}: telemetry off left flight records")
+
+    per_tier = {}
+    peak_bps = dm.H100_HBM_BYTES_PER_S
+    for key in OBS_TIERS:
+        s = scorers[key]
+        what = f"scope {key}"
+        recs = scope_records(s, calls[key])
+        fetched = check_tick_records(recs, s.dispatches - d0[key], what)
+        # the last traced serve: serve.tick tiled by its tick.* children
+        spans = observability.TRACER.export(traced[key])
+        ticks = [x for x in spans if x["name"] == "serve.tick"]
+        if not ticks:
+            raise AssertionError(f"{what}: no serve.tick span under the "
+                                 f"traced serve ({[x['name'] for x in spans]})")
+        tick = ticks[-1]
+        kids = [x for x in spans if x["parent_id"] == tick["span_id"]]
+        kid_ms = sum(x["duration_ms"] for x in kids)
+        if not kids or abs(kid_ms - tick["duration_ms"]) > \
+                0.05 * tick["duration_ms"]:
+            raise AssertionError(f"{what}: tick.* children {kid_ms} ms vs "
+                                 f"serve.tick {tick['duration_ms']} ms")
+        # the roofline: modeled bytes = tick_cost at the tick's shapes
+        entry = s._scope_entry
+        priced = ROOFLINE.priced(entry)
+        p = s._params if key != "rules" else None
+        shapes = dict(zip(("pn", "pi", "width", "pair_width", "pk", "rk"),
+                          s._scope_key)) if p is None else {
+            **dict(zip(("pn", "pi", "pe", "pk", "ek"), s._scope_key)),
+            "hidden": int(p["embed_b"].shape[0]), "layers": len(p["layers"])}
+        want = dm.tick_cost(entry, **shapes)
+        modeled = m.ROOFLINE_MODELED_BYTES.value(entrypoint=entry, pack="0")
+        achieved = m.ROOFLINE_ACHIEVED_BPS.value(entrypoint=entry, pack="0")
+        drift = m.ROOFLINE_DRIFT.value(entrypoint=entry, pack="0")
+        halo = m.ROOFLINE_HALO_BYTES.value(entrypoint=entry, pack="0")
+        if priced[s._scope_key]["hbm_bytes"] != want["bytes"] or \
+                modeled not in {r["hbm_bytes"] for r in priced.values()}:
+            raise AssertionError(f"{what}: modeled {modeled} B, tick_cost "
+                                 f"{want['bytes']} B at {shapes}")
+        if not (0.0 < achieved <= ANCHOR_LIMIT * peak_bps) or \
+                not (0.0 < drift <= 1.0) or halo != 0.0:
+            raise AssertionError(f"{what}: achieved {achieved} B/s, drift "
+                                 f"{drift}, halo {halo}")
+        per_tier[key] = {
+            "entrypoint": entry, "ticks": s.dispatches - d0[key],
+            "fetched_ticks": fetched,
+            "coalesced_events": sum(r.get("event") == "coalesced"
+                                    for r in recs),
+            "modeled_bytes": modeled, "tick_cost_bytes": want["bytes"],
+            "tick_cost_flops": want["flops"],
+            "achieved_gbps": achieved / 1e9, "best_gbps":
+                ROOFLINE.best(entry) / 1e9, "drift": drift,
+            "serve_tick_ms": tick["duration_ms"],
+            "stages_ms": {x["name"]: x["duration_ms"] for x in kids},
+            "dispatch_p50_ms": statistics.median(dispatch_s[key]) * 1e3}
+        log(f"{what}: {per_tier[key]}")
+
+    # -- device_trace over three ticks of each scorer ------------------------
+    expect = {"rules_fold_kernel": ("rules_fold",), "gms_segment_kernel":
+              ("gms",), "embed_kernel": ("fused_tick", "fused_tick_dma")}
+    traces = {}
+    for key in OBS_TIERS:
+        sessions = []
+        for _ in range(3):
+            with tempfile.TemporaryDirectory(prefix="kaeg-trace-") as d:
+                reset_counts()
+                with observability.device_trace(d, device=dev):
+                    for _ in range(3):
+                        scorers[key].rescore()
+                counts = read_counts()
+                named = trace_kernel_counts(os.path.join(d, "trace.json"))
+            want_named = {k: sum(counts[c] for c in v)
+                          for k, v in expect.items()}
+            sessions.append(named)
+            if {k: named[k] for k in expect} == want_named:
+                break
+            # CUPTI now and then drops a session's device activity: the
+            # session is traced again
+        else:
+            raise AssertionError(f"device_trace of {key}: {sessions} in three "
+                                 f"sessions, the wrappers counted {counts}")
+        traces[key] = {"named": named, "counted": counts,
+                       "sessions": len(sessions)}
+    log(f"device_trace: each scorer's kernels as the wrappers counted them: "
+        f"{traces}")
+
+    # -- the telemetry's cost (printed, not gated) ---------------------------
+    cost_us = scope_cost_us(scorers["rules"])
+    cost = {"scope_us_per_tick": cost_us,
+            **{f"{t}_dispatch_p50_ms_{state}": statistics.median(
+                dispatch_s[t if state == "on" else f"{t}_off"]) * 1e3
+               for t in ("rules", "composed") for state in ("on", "off")}}
+    for s in scorers.values():
+        s._drop_stale_inflight()
+    log(f"telemetry cost: {cost}")
+    return {"anchors": anchors, "b1_config3": b1, "forward_config3": fwd,
+            "config4": per_tier, "bits_on_off": bits, "launches": launches,
+            "device_trace": traces,
+            "telemetry_cost": cost, "ticks": n_ticks,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def by_incident(out: dict, key: str) -> list:
     """``out[key]`` row by row, in sorted incident-id order."""
     rows = {iid: i for i, iid in enumerate(out["incident_ids"])}
@@ -3585,6 +4049,11 @@ def main(argv: list[str]) -> int:
                  "app_tpu_shielded": shield_app["launches"]}
     rules_learned.update({k: c["rules_fold"] for k, c in rec_paths.items()})
 
+    # -- 16. observability on the card: anchors, the device-only slopes,
+    # the tick scope and roofline over config-4 churn, device_trace ------
+    obs = run_observability(dev, snapshot, backend, t3["ms"])
+    rules_learned["config4_scope"] = obs["launches"]["rules_fold"]
+
     kernels = [{
         "name": "rules_fold", "route": "cuda",
         "source": "kubernetes_aiops_evidence_graph_tpu_torch/kernels/rules_fold.cu",
@@ -3619,12 +4088,13 @@ def main(argv: list[str]) -> int:
         "launches": learned3["launches"] + learned4["launches"] + sum(
             c["gms"] for c in train_paths.values()) + sum(
             c["gms"] for c in app_paths.values())
-            + recovery["launches"]["gms"],
+            + recovery["launches"]["gms"] + obs["launches"]["gms"],
         "launches_by_path": {"config3_learned": learned3["launches"],
                              "config4_learned": learned4["launches"],
                              **{k: c["gms"] for k, c in train_paths.items()},
                              **{k: c["gms"] for k, c in app_paths.items()},
-                             "config4_recovery": recovery["launches"]["gms"]},
+                             "config4_recovery": recovery["launches"]["gms"],
+                             "config4_scope": obs["launches"]["gms"]},
         "config4_ticks": learned4["ticks"],
         "max_abs_err": gms_err,
         "ms": learned3["timing"]["ms"],
@@ -3668,11 +4138,12 @@ def main(argv: list[str]) -> int:
             "replaces": "kubernetes_aiops_evidence_graph_tpu/ops/"
                         f"pallas_segment.py:{line}",
             "launches": sum(tiers[r]["counts"][name] for r in runs)
-            + recovery["launches"][name],
+            + recovery["launches"][name] + obs["launches"][name],
             "launches_by_path": {
                 **{f"config4_learned_{r}": tiers[r]["counts"][name]
                    for r in runs},
-                "config4_recovery": recovery["launches"][name]},
+                "config4_recovery": recovery["launches"][name],
+                "config4_scope": obs["launches"][name]},
             "config4_ticks": tiers[runs[0]]["ticks"],
             "max_abs_err": fused_err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -3734,6 +4205,12 @@ def main(argv: list[str]) -> int:
         f"{recovery['fallback']['tier_log']}; app rules unshielded "
         f"{plain_app['incidents_per_s']:.2f} vs shielded "
         f"{shield_app['incidents_per_s']:.2f} incidents/s")
+    log(f"observability ({smi}): B1 device-only "
+        f"{obs['b1_config3']['device_ms_per_pass']:.5f} ms vs dispatch "
+        f"{obs['b1_config3']['dispatch_ms_per_pass']:.5f} ms a pass; "
+        f"forward {obs['forward_config3']['device_ms_per_pass']:.4f} vs "
+        f"{obs['forward_config3']['dispatch_ms_per_pass']:.4f} ms; telemetry "
+        f"{obs['telemetry_cost']}; phase {obs['phase_s']:.1f} s")
     log(f"cli ({smi}): {cli_run['seconds']:.2f} s at {cli_run['pods']} pods, "
         f"graph {cli_run['graph']}, B1 {cli_run['b1_device_ms']} device ms; "
         f"blast: {blast['ms_per_call']:.3f} ms a route call, "
@@ -3859,6 +4336,10 @@ def main(argv: list[str]) -> int:
             for kind, r in recovery["kinds"].items()},
         "app_tpu_unshielded": {k: plain_app.get(k) for k in app_keys},
         "app_tpu_shielded": {k: shield_app[k] for k in app_keys}}}))
+    print(json.dumps({"observability": {
+        "card": smi, **{k: v for k, v in obs.items() if k != "launches"},
+        "launches": obs["launches"],
+        "learn_counters_phase10": online["learn_counters"]}}))
     print(json.dumps({"cli": {"card": smi, **cli_run}}))
     print(json.dumps({"blast": {"card": smi, **blast}}))
     print(json.dumps({"live": {"card": smi, **live}}))

@@ -27,6 +27,7 @@ import hashlib
 
 import numpy as np
 
+from ..observability import metrics as obs_metrics
 from ..rca import gnn
 from ..rca.ruleset import RULE_INDEX
 
@@ -196,6 +197,10 @@ class ReplayBuffer:
         while len(self._entries) > self.cap:
             self._entries.popitem(last=False)
             self.evicted += 1
+        obs_metrics.LEARN_BUFFER_SIZE.set(float(len(self._entries)))
+        for source, n in episode.get("label_sources", {}).items():
+            obs_metrics.LEARN_EPISODES_HARVESTED.inc(float(n),
+                                                     source=source)
         return True
 
     def __contains__(self, fingerprint: str) -> bool:

@@ -16,18 +16,25 @@ The port of the JAX package's ``learn/loop.py``. One cycle (``run_once``):
 4. **Swap**: hot swap into EVERY attached scorer atomically
    (``rca/surge.swap_tenants_atomically``, ordered ``serve_lock``
    acquisition). In-flight ticks complete on the old generation.
-5. **Watch**: the next cycle rolls back to the previous generation if a
-   target quarantined batches since the swap.
+5. **Watch**: the next cycle rolls back to the previous generation if
+   the serving stack surfaced non-finite verdicts
+   (``aiops_shield_nonfinite_verdicts_total{path="shield"}``) or a target
+   quarantined batches since the swap (counted in
+   ``aiops_learn_rollbacks_total``, and a ``params_rollback`` event in the
+   flight ring).
 
 A ``FaultInjector`` (rca/faults.py) passed as ``injector`` fires at the
 ``harvest`` and ``swap`` stages: a faulted cycle is contained, with the
 serving params and generation untouched. A target wrapped in the crash
 shield (rca/shield.py) journals each swap before it applies.
 
-Not ported yet: the Prometheus counters, the non-finite-verdict counter
-and the flight recorder's events (ROADMAP item 8); the learner's own
+The gate sets ``aiops_learn_eval_top1`` and counts
+``aiops_learn_gate_rejects_total``; the fine-tune counts its steps
+(``learn/trainer.py``) and the replay buffer its size and harvested
+episodes (``learn/episodes.py``); the swap counts itself where it
+applies (``rca/surge.py``, ``rca/gnn_streaming.py``). The learner's own
 counters (``cycles``, ``swaps``, ``rollbacks``, ``gate_rejects``) are
-here.
+here too.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ import logging
 import threading
 
 from ..config import Settings, get_settings
+from ..observability import metrics as obs_metrics
+from ..observability import scope as obs_scope
 from .episodes import (ReplayBuffer, build_episode, build_replay_episode,
                        harvest_labels)
 from .trainer import finetune, gate_eval, params_finite
@@ -192,9 +201,12 @@ class OnlineLearner:
         evals = {"candidate_top1": cand, "serving_top1": serve,
                  "holdout_episodes": len(holdout), "finite": finite}
         self.last_eval = evals
+        obs_metrics.LEARN_EVAL_TOP1.set(cand, params="candidate")
+        obs_metrics.LEARN_EVAL_TOP1.set(serve, params="serving")
         ok = finite and bool(holdout) and cand >= serve
         if not ok:
             self.gate_rejects += 1
+            obs_metrics.LEARN_GATE_REJECTS.inc()
             log.warning("learn gate rejected the candidate: %s", evals)
         return ok, evals
 
@@ -214,10 +226,14 @@ class OnlineLearner:
         return gen
 
     def _health_counters(self) -> dict:
-        """Post-swap regression signals: quarantines observed by the
-        serving stack since the swap."""
-        return {f"quarantined_{i}": int(getattr(t, "quarantined_batches", 0))
-                for i, t in enumerate(self.targets)}
+        """Post-swap regression signals: non-finite verdicts and
+        quarantines observed by the serving stack since the swap."""
+        out = {"nonfinite": obs_metrics.SHIELD_NONFINITE_VERDICTS.value(
+            path="shield")}
+        for i, t in enumerate(self.targets):
+            out[f"quarantined_{i}"] = int(
+                getattr(t, "quarantined_batches", 0))
+        return out
 
     def maybe_rollback(self) -> bool:
         """Roll back to the previous generation when the serving stack
@@ -237,8 +253,12 @@ class OnlineLearner:
                 if gen is not None:
                     gens.append(gen)
         if not gens:
+            # the shield's own params_rollback rung already healed it (or
+            # there was never a previous generation to restore)
             return False
         self.rollbacks += 1
+        obs_scope.FLIGHT_RECORDER.note_event(
+            "params_rollback", generations=gens)
         log.error("learn rolled back to generations %s", gens)
         return True
 

@@ -26,6 +26,7 @@ import logging
 import numpy as np
 import torch
 
+from ..observability import metrics as obs_metrics
 from ..rca import gnn
 
 log = logging.getLogger(__name__)
@@ -156,6 +157,7 @@ def finetune(serving_params, episodes: list, sim_episodes: list,
             b = uploaded[id(ep)] = gnn.batch_to(batch, dev)
         params, opt_state, loss = step(params, opt_state, anchor,
                                        anchor_weight, b, rel_offsets=offs)
+        obs_metrics.LEARN_TRAIN_STEPS.inc()
     params = gnn.unflat_params({k: v.detach() for k, v in
                                 gnn.flat_params(params).items()})
     return {"params": params, "steps": len(schedule),

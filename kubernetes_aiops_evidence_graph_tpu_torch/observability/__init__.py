@@ -18,7 +18,7 @@ from .metrics import (
     Histogram,
     Registry,
 )
-from .tracing import TRACER, Span, Tracer
+from .tracing import TRACER, Span, Tracer, device_trace
 
 # wire the collector hook (avoids an import cycle at package load)
 from .. import observability_hooks as _hooks
@@ -39,5 +39,5 @@ __all__ = [
     "INCIDENTS_RESOLVED", "REMEDIATION_ATTEMPTS", "HYPOTHESES_GENERATED",
     "EVIDENCE_COLLECTED", "WEBHOOK_LATENCY", "COLLECTOR_DURATION",
     "RCA_DURATION", "WORKFLOW_STEP_DURATION", "WORKFLOW_STEPS",
-    "TRACER", "Tracer", "Span",
+    "TRACER", "Tracer", "Span", "device_trace",
 ]

@@ -9,7 +9,7 @@ per-tick trace context through the entire hot path, with three pillars:
 1. **Per-tick stage spans.** Every tick carries a :class:`TickSpan`
    recording host timestamps at the existing non-jitted boundaries —
    delta staging/packing, coalesce merges, queue wait (pipeline-full
-   stalls), dispatch (the jit enqueue), device completion (the first
+   stalls), dispatch (the kernel launches), device completion (the first
    host OBSERVATION of the donated tick's ready event — graft-scope
    never injects a device sync the serving path would not already pay)
    and the deferred fetch. Stage splits aggregate into the
@@ -26,25 +26,29 @@ per-tick trace context through the entire hot path, with three pillars:
    (linear interpolation) — the ROADMAP item-2 SLO surface, benched by
    ``bench.py bench_webhook_verdict_slo`` under 1k ev/s churn.
 
-3. **Flight recorder.** A bounded ring of the last K per-tick records
-   (stage splits, coalesced size, shard routing counts, shield tier,
-   nonfinite/quarantine flags) that can be dumped to disk for forensics.
+3. **Flight recorder + roofline drift.** A bounded ring of the last K
+   per-tick records (stage splits, coalesced size, shard routing counts,
+   shield tier, nonfinite/quarantine flags) is dumped to disk on every
+   shield degradation transition or recovery. Roofline drift gauges
+   price the LIVE tick at its padded shapes (``rca/device_metrics.
+   tick_cost``, the closed form over the port's kernels; once per shape
+   key) and track modeled-bytes/observed-seconds against the session's
+   best, so a dashboard sees measured performance decaying away from the
+   model without a bench run.
 
-The port's copy keeps the host parts only: the JAX package's roofline
-drift model prices the live tick's jaxpr (``_Roofline``/``ROOFLINE``);
-its counterpart over the port's kernels is ROADMAP item 8, and so are
-the scorers' TickSpan marks and their ``note_coalesced`` calls (the
-scorers coalesce on ``STORM_FLAG`` and count it on ``/metrics``). Here
-the ingestion edge and the workflow feed ``SCOPE``, spans and the flight
-ring.
+The resident scorers (``rca/streaming.py``, ``rca/gnn_streaming.py``)
+stamp their ticks' stages and feed the roofline; the ingestion edge and
+the workflow feed ``SCOPE``, spans and the flight ring. What waits for
+later ROADMAP items: the ``pack`` dimension beyond ``"0"`` (item 7), the
+sharded entry points and ``SHARD_DELTA_ROWS`` routing (item 9).
 
 Hard constraints this module keeps: all timestamps are host-side
 monotonic reads (the epoch anchor for OTLP export is taken ONCE from
 ``utils.timeutils.utcnow`` — durations never touch the wall clock, so
 the ``wall-clock`` lint stays clean with zero waivers); no jitted code
-is touched (COST_BASELINE unchanged); the telemetry cost is gated at
-<1% of depth-2 steady-state throughput (tests/test_scope.py, marker
-``perf_contract``).
+is touched; the telemetry cost is gated at
+<1% of depth-2 steady-state throughput (tests/test_torch_scope_overhead.py,
+marker ``perf_contract``).
 """
 from __future__ import annotations
 
@@ -345,6 +349,116 @@ def take_route() -> tuple[int, ...]:
     rows = getattr(_route_tls, "last", ())
     _route_tls.last = ()
     return rows
+
+
+# -- roofline drift ---------------------------------------------------------
+
+class _Roofline:
+    """Price the LIVE tick and track achieved bandwidth against the
+    session's best. The price is ``rca/device_metrics.tick_cost`` at the
+    tick's padded shapes: a closed form costing microseconds, computed
+    once per (entrypoint, shape key) on the calling thread; steady-state
+    ticks pay a dict lookup. On one card no tick moves halo bytes."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._costs: dict[tuple, dict] = {}
+        # achieved/best are PER (entrypoint, pack) series
+        self._best: dict[tuple[str, str], float] = {}
+        self._ewma: dict[tuple[str, str], float] = {}
+        self._gauged: set[tuple[str, str]] = set()
+
+    def model(self, entrypoint: str, key: tuple, shapes,
+              pack: str = "0") -> None:
+        """Price ``entrypoint`` at ``shapes()`` (a callable returning
+        ``tick_cost``'s keyword arguments, called only for a new key) the
+        first time ``key`` is seen, and set this pack's modeled gauges
+        once per (entrypoint, pack)."""
+        k = (entrypoint, key)
+        if k in self._costs and (entrypoint, pack) in self._gauged:
+            return      # steady state (entries are never removed)
+        with self._lock:
+            rec = self._costs.get(k)
+            if rec is not None:
+                # cost cache hit (shape-keyed, pack-independent): only
+                # THIS pack's modeled gauges may still be missing
+                if (entrypoint, pack) in self._gauged:
+                    return
+                self._gauged.add((entrypoint, pack))
+        if rec is None:
+            rec = self._price(entrypoint, shapes())
+            with self._lock:
+                self._costs[k] = rec
+                self._gauged.add((entrypoint, pack))
+        m.ROOFLINE_MODELED_BYTES.set(
+            float(rec["hbm_bytes"]), entrypoint=entrypoint, pack=pack)
+        m.ROOFLINE_HALO_BYTES.set(
+            float(rec["collective_bytes"]), entrypoint=entrypoint, pack=pack)
+
+    @staticmethod
+    def _price(entrypoint: str, shapes: dict) -> dict:
+        from ..rca.device_metrics import tick_cost
+        try:
+            cost = tick_cost(entrypoint, **shapes)
+            return {"hbm_bytes": int(cost["bytes"]),
+                    "flops": int(cost["flops"]), "collective_bytes": 0,
+                    "shapes": dict(shapes)}
+        except (TypeError, ValueError, KeyError) as exc:
+            # advisory gauge: a pricing failure must never surface into
+            # the tick it describes — a zero-cost sentinel keeps it
+            # visible (modeled bytes 0: no drift signal), priced once
+            log.warning("roofline_price_failed", entrypoint=entrypoint,
+                        error=str(exc))
+            return {"hbm_bytes": 0, "flops": 0, "collective_bytes": 0,
+                    "shapes": dict(shapes)}
+
+    def join(self) -> None:
+        """Kept for the callers of the JAX package's interface: pricing
+        is synchronous here, so nothing is ever in flight."""
+
+    def priced(self, entrypoint: str) -> dict[tuple, dict]:
+        """Every shape key priced for ``entrypoint`` → its cost record
+        (``hbm_bytes``, ``flops``, ``shapes``)."""
+        with self._lock:
+            return {key: dict(rec) for (e, key), rec in self._costs.items()
+                    if e == entrypoint}
+
+    def observe(self, entrypoint: str, key: tuple, seconds: float,
+                pack: str = "0") -> None:
+        """Host-observed device window of one tick → achieved-bandwidth
+        proxy (modeled bytes / seconds, EWMA-smoothed) and drift vs the
+        session high-water mark — per (entrypoint, pack) series."""
+        if seconds <= 0:
+            return
+        rec = self._costs.get((entrypoint, key))   # entries never removed
+        if not rec or not rec["hbm_bytes"]:
+            return
+        bps = rec["hbm_bytes"] / seconds
+        series = (entrypoint, pack)
+        with self._lock:
+            prev = self._ewma.get(series)
+            ewma = bps if prev is None else 0.9 * prev + 0.1 * bps
+            self._ewma[series] = ewma
+            best = max(self._best.get(series, 0.0), ewma)
+            self._best[series] = best
+        m.ROOFLINE_ACHIEVED_BPS.set(ewma, entrypoint=entrypoint, pack=pack)
+        m.ROOFLINE_DRIFT.set(ewma / best if best else 0.0,
+                             entrypoint=entrypoint, pack=pack)
+
+    def achieved(self, entrypoint: str, pack: str = "0") -> float:
+        """EWMA achieved-bytes/s for one (entrypoint, pack) series (0.0
+        until the first observed tick)."""
+        with self._lock:
+            return self._ewma.get((entrypoint, pack), 0.0)
+
+    def best(self, entrypoint: str, pack: str = "0") -> float:
+        """Session high-water achieved-bytes/s for one series (0.0 until
+        the first observed tick): the denominator of the drift signal."""
+        with self._lock:
+            return self._best.get((entrypoint, pack), 0.0)
+
+
+ROOFLINE = _Roofline()
 
 
 # -- the per-scorer telemetry front-end -------------------------------------

@@ -2,13 +2,13 @@
 
 The reference declares OTel deps + a Tempo endpoint but contains zero
 opentelemetry imports (SURVEY.md §5). Here: a dependency-free tracer with
-workflow-step and collector spans, in-memory ring buffer + JSON export.
-The JAX package's profiler bridge for the device pass (``device_trace``)
-is not ported yet: its ``torch.profiler`` counterpart is ROADMAP item 8.
+workflow-step and collector spans, in-memory ring buffer + JSON export, and
+a ``torch.profiler`` bridge for the device passes (``device_trace``).
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 import uuid
@@ -157,3 +157,48 @@ class Tracer:
 
 
 TRACER = Tracer()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, device=None) -> Iterator[None]:
+    """torch.profiler bridge for the scoring path: wraps a block in a
+    profiler trace (the host's CPU activity and, on the card, its CUDA
+    activity: every kernel and copy with its device time) and writes it
+    as a Chrome trace (``trace.json``, viewable in Perfetto or
+    chrome://tracing) into ``log_dir`` at exit. ``device`` None is the
+    card and raises without one; ``"cpu"`` traces the CPU activity only.
+
+    On the card the trace opens with :data:`TRACE_LEAD_KERNELS` small
+    kernels under a ``device_trace.lead`` range, then the block: late in
+    a long process an H100 session was seen to lose the kernel records
+    of its first ten launches (their launch calls recorded, the kernels
+    not), in every session, whatever waited before them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+        # the trace holds the block's device work, not what was queued
+        # before it
+        torch.cuda.synchronize(dev)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        if dev.type == "cuda":
+            with record_function("device_trace.lead"):
+                lead = torch.zeros(1, device=dev)
+                for _ in range(TRACE_LEAD_KERNELS):
+                    lead.add_(1.0)
+                torch.cuda.synchronize(dev)
+        try:
+            yield
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+TRACE_LEAD_KERNELS = 128
+"""Small kernels that open a card trace ahead of the traced block."""

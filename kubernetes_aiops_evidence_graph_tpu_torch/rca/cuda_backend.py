@@ -21,7 +21,6 @@ package's ``TpuRcaBackend`` on the same snapshot.
 """
 from __future__ import annotations
 
-import logging
 import time
 from dataclasses import dataclass
 from uuid import UUID, uuid4
@@ -37,10 +36,13 @@ from ..ladders import (PACK_BUCKETS as _PACK_BUCKETS_LADDER,
                        PAIR_WIDTH_BUCKETS as _PAIR_WIDTH_BUCKETS,
                        WIDTH_BUCKETS as _WIDTH_BUCKETS)
 from ..models import Hypothesis, HypothesisSource, RCAResult
+from ..observability import get_logger
+from ..observability import metrics as obs_metrics
+from ..observability import scope as obs_scope
 from ..utils.padding import bucket_for
 from .ruleset import NUM_RULES, RULES
 
-log = logging.getLogger(__name__)
+log = get_logger("cuda_backend")
 
 
 @dataclass(frozen=True)
@@ -289,7 +291,9 @@ class CudaRcaBackend:
         Returns a dict of host numpy arrays keyed by incident order
         (snapshot.incident_ids); use :meth:`results` for model objects
         (which needs the default ``fields="full"``). ``fields="top"``
-        fetches only the top-1 verdict fields."""
+        fetches only the top-1 verdict fields. Every fetch increments
+        ``aiops_serve_fetched_bytes_total`` (path="score_snapshot") with
+        the bytes moved."""
         _, _, prep_s = self._load(snapshot)  # dispatch() below hits the cache
 
         all_fields = self._FETCH_FIELDS["full"]
@@ -301,10 +305,28 @@ class CudaRcaBackend:
         fetched = fetch(out[all_fields.index(k)] for k in keys)
         fetch_s = time.perf_counter() - t2
 
-        # a poisoned feature row must never pass silently as a verdict
+        obs_metrics.SERVE_FETCHED_BYTES.inc(
+            float(sum(a.nbytes for a in fetched)), path="score_snapshot")
+        # under a live trace (the workflow's snapshot-verdict path) the
+        # pass joins it as a child span with its dispatch/fetch splits,
+        # emitted afterwards: no span object inside the timed windows
+        obs_scope.emit_stage_span(
+            "serve.score_snapshot",
+            (("dispatch", dispatch_s), ("fetch", fetch_s)),
+            fields=fields, incidents=snapshot.num_incidents)
+
+        # a poisoned feature row must never pass silently as a verdict:
+        # this batch path has no delta to quarantine, so it counts, logs
+        # and flight-records the signal
         for k, a in zip(keys, fetched):
             if a.dtype.kind == "f" and not np.isfinite(a).all():
-                log.warning("nonfinite verdict field %s (score_snapshot)", k)
+                obs_metrics.SHIELD_NONFINITE_VERDICTS.inc(
+                    path="score_snapshot")
+                log.warning(
+                    "nonfinite_verdict_field", field=k)
+                obs_scope.FLIGHT_RECORDER.note_event(
+                    "nonfinite_verdict_field", field=k,
+                    path="score_snapshot")
                 break
 
         n = snapshot.num_incidents

@@ -51,6 +51,8 @@ from ..graph.snapshot import rel_slice_offsets
 from ..graph.store import EvidenceGraphStore
 from ..kernels import fused_tick
 from ..ladders import DELTA_BUCKETS as _DELTA_BUCKETS, REL_SLICE_BUCKETS
+from ..observability import metrics as obs_metrics
+from ..observability import scope as obs_scope
 from ..ops.fused_tick import quantize_features, tiles_align
 from ..utils.padding import bucket_for
 from . import gnn
@@ -194,7 +196,16 @@ class GnnStreamingScorer(StreamingScorer):
         # edge mirrors built from the store (construction, rebuilds and
         # region overflows)
         self.mirror_builds = 0
+        # the roofline's price of a tick reads the params' shapes, which
+        # a swap may not change (_swap_params_locked refuses)
+        self._scope_consts = {
+            "hidden": int(self._params["embed_b"].shape[0]),
+            "layers": len(self._params["layers"]),
+            "compute_dtype": self._compute_dtype}
         super().__init__(store, cfg, now_s=now_s, device=dev)
+        # this scorer's ticks and SLO samples carry the backend that
+        # produced the verdict
+        self.scope.backend = "gnn"
 
     def _staged_extra_ints(self) -> "np.ndarray | None":
         return self._gnn_stage
@@ -522,6 +533,42 @@ class GnnStreamingScorer(StreamingScorer):
         return _gnn_tick(*args, pk, ek, pi, f_live, e_live, offs,
                          self._compute_dtype)
 
+    def _tick_entrypoint(self) -> str:
+        """Cost-model entry point of the tier :meth:`_call_gnn_tick` will
+        launch for the current layout: the roofline prices the variant
+        that actually serves (the streamed tiers move their activations
+        and quantized tables through device memory, the fused tier does
+        not, the composed tick materializes each layer)."""
+        offs = self._rel_offsets
+        if self._dma_ok(offs):
+            if self._feat_quant == "int8":
+                return "streaming.gnn_tick.dma.int8"
+            if self._feat_quant == "bfloat16":
+                return "streaming.gnn_tick.dma.bf16"
+            return "streaming.gnn_tick.dma"
+        if self._fused_ok(offs):
+            return ("streaming.gnn_tick.fused.bf16"
+                    if self._compute_dtype == "bfloat16"
+                    else "streaming.gnn_tick.fused")
+        return "streaming.gnn_tick.bucketed"
+
+    def _scope_gnn(self, span, pk: int, ek: int) -> None:
+        """Roofline-model the GNN tick at its live padded shapes (priced
+        once per shape key). The GNN tick supersedes the rules tick as
+        the entry point this scorer reports: its verdict is the one
+        served."""
+        if span is None:
+            return
+        pi = self.snapshot.padded_incidents
+        pn = self.snapshot.padded_nodes
+        pe = int(self._esrc_dev.shape[0])
+        self._scope_entry = self._tick_entrypoint()
+        self._scope_key = (pn, pi, pe, pk, ek)
+        obs_scope.ROOFLINE.model(
+            self._scope_entry, self._scope_key,
+            lambda: {"pn": pn, "pi": pi, "pe": pe, "pk": pk, "ek": ek,
+                     **self._scope_consts}, pack=self._scope_pack)
+
     def dispatch(self) -> tuple:
         """The base tick (shared feature delta + rules score), then the GNN
         tick on the UPDATED features. The edge-journal drain and the GNN
@@ -540,14 +587,18 @@ class GnnStreamingScorer(StreamingScorer):
             out = super().dispatch()
         finally:
             self._gnn_stage = None
+        span = self._last_tick_span   # opened by the base dispatch
         ints_dev, self._staged_gnn_dev = self._staged_gnn_dev, None
         args = (self._params, self._features_dev, self._kind_dev,
                 self._nmask_dev, self._esrc_dev, self._edst_dev,
                 self._erel_dev, self._emask_dev, ints_dev)
+        self._scope_gnn(span, pk, ek)
         with self._on_stream():
             logits, probs = self._call_gnn_tick(
                 args, pk, ek, self.snapshot.padded_incidents, f_live, e_live)
         self._last_gnn = (self.params_generation, logits, probs)
+        if span is not None:
+            span.mark("gnn_dispatch")
         return out
 
     def _tick_handles(self, out: tuple) -> _Tick:
@@ -557,18 +608,25 @@ class GnnStreamingScorer(StreamingScorer):
         hot swap reports the generation that produced the verdict."""
         return _Tick(self._last_gnn, self._record())
 
-    def _fetch_verdicts(self, handles: _Tick, stats: dict,
+    def _fetch_verdicts(self, handles: _Tick, span, stats: dict,
                         queue_wait_s: float, dispatch_s: float) -> dict:
         """GnnRcaBackend.score_snapshot-shaped raw dict for live incidents:
-        one wait and one readback of the probs."""
+        one wait and one readback of the probs (the base class's scope
+        stamps around them)."""
         t2 = time.perf_counter()
         self._fault_point("fetch")
         self._wait(handles)
+        if span is not None:
+            span.mark("execute")
         tick_gen, _logits, probs = handles.out
         with self._on_stream():
             probs = probs.cpu().numpy()
         fetch_s = time.perf_counter() - t2
+        if span is not None:
+            self._scope_fetched(span)
         self.fetches += 1
+        obs_metrics.SERVE_FETCHED_BYTES.inc(float(probs.nbytes),
+                                            path="gnn_rescore")
         ids, rows = self.live_incidents()
         p = probs[rows]
         pred = p.argmax(axis=-1)
@@ -606,6 +664,10 @@ class GnnStreamingScorer(StreamingScorer):
         self._params = new
         self.params_generation = int(generation)
         self._params_source = source
+        obs_metrics.LEARN_GENERATION.set(float(self.params_generation))
+        obs_scope.FLIGHT_RECORDER.note_event(
+            "params_swap", generation=self.params_generation,
+            source=source, backend="gnn")
         log.info("params swapped to generation %d (%s)",
                  self.params_generation, source)
 
@@ -617,6 +679,7 @@ class GnnStreamingScorer(StreamingScorer):
             gen = (self.params_generation + 1 if generation is None
                    else int(generation))
             self._swap_params_locked(params, gen, source=source)
+        obs_metrics.LEARN_SWAPS.inc()
         return gen
 
     def rollback_params(self) -> "int | None":
@@ -630,6 +693,7 @@ class GnnStreamingScorer(StreamingScorer):
             gen = self.params_generation + 1
             self._swap_params_locked(params, gen, source=source)
             self._params_prev = None
+        obs_metrics.LEARN_ROLLBACKS.inc()
         return gen
 
     # -- crash-shield seams (snapshot/restore) -----------------------------

@@ -473,6 +473,7 @@ class ShieldedScorer:
             if state["failures"] and self.tier not in ("rules_fallback",
                                                        "breaker_open"):
                 self.tier = "steady"
+                self.scorer._scope_tier = "steady"
             return out
 
     def _escalate(self, exc: Exception, state: dict) -> None:
@@ -711,8 +712,10 @@ class ShieldedScorer:
         self.tier = tier
         self.tier_log.append(tier)
         obs_metrics.SHIELD_TIER_TRANSITIONS.inc(tier=tier)
-        # freeze the flight ring to disk: the forensic window AROUND the
-        # degradation, not just its counter
+        # stamp the tier onto the scorer (every later TickSpan carries it)
+        # and freeze the flight ring to disk: the forensic window AROUND
+        # the degradation, not just its counter
+        self.scorer._scope_tier = tier
         obs_scope.FLIGHT_RECORDER.dump(f"tier:{tier}", self.flight_dir)
 
     # -- snapshots + recovery ---------------------------------------------

@@ -287,6 +287,23 @@ class StreamingScorer:
         self.absorb_sync_drains = 0
         self._max_journal_backlog = int(
             self.settings.ingest_max_journal_backlog)
+        # per-tick telemetry (observability/scope.py): off, each boundary
+        # costs one attribute read; on, host-monotonic stage marks only,
+        # no device sync the serving path would not already pay.
+        # _inflight_meta shadows _inflight with one TickSpan per queued
+        # tick (None when telemetry is off), so a tick's completion is
+        # stamped where the host first observes its CUDA event: retire,
+        # stall or fetch, whichever comes first
+        self.scope = obs_scope.TickScope(backend="rules",
+                                         settings=self.settings)
+        self._scope_tier = "steady"        # the shield re-stamps on ladder moves
+        self._inflight_meta: collections.deque = collections.deque()
+        self._last_tick_span = None
+        self._scope_coalesced_since = 0
+        self._scope_key: tuple = ()
+        self._scope_entry = "streaming.rules_tick"
+        # the owning serving pack's id (one pack until ROADMAP item 7)
+        self._scope_pack = "0"
         self._init_from_store()
 
     # -- device helpers -----------------------------------------------------
@@ -316,7 +333,13 @@ class StreamingScorer:
         stale = getattr(self, "_inflight", None)
         if stale:
             self.deferred_fetches += len(stale)
+            obs_metrics.SERVE_DEFERRED_FETCHES.inc(float(len(stale)))
             stale.clear()
+        stale_meta = getattr(self, "_inflight_meta", None)
+        if stale_meta:
+            for sp in stale_meta:
+                self.scope.finalize(sp)
+            stale_meta.clear()
 
     def _init_from_store(self) -> None:
         """Tensorize the store and derive the host-authoritative incremental
@@ -875,7 +898,8 @@ class StreamingScorer:
         pn = self.snapshot.padded_nodes
         dim = self.snapshot.features.shape[1]
         width = self.width
-        pk = bucket_for(max(len(stage), 1), _DELTA_BUCKETS)
+        k = len(stage)
+        pk = bucket_for(max(k, 1), _DELTA_BUCKETS)
         r_live = len(self._dirty_rows)
         r_idx, r_ev, r_cnt, r_pair = self._pending_row_delta()
         rk = len(r_idx)
@@ -893,12 +917,36 @@ class StreamingScorer:
         f_live = stage.drain_into(buf[:pk], f_rows, pn)
         if gi:
             buf[li + pk * dim:] = extra
+        obs_metrics.INGEST_BATCH_FILL.set(k / pk, site="delta")
         return slab, f_rows, li, pk, rk, gi, f_live, r_live
 
     def dispatch(self) -> tuple:
         """Flush pending deltas and enqueue one scoring pass; returns the
-        seven device outputs without a host fetch."""
+        seven device outputs without a host fetch.
+
+        The tick's TickSpan opens here and is stamped at each host
+        boundary: ``pack`` when the staged slab is filled, ``staging``
+        when its upload is enqueued, ``dispatch`` when the tick's launches
+        have returned. The span parks in ``_last_tick_span`` for the
+        caller (tick_async queues it with the in-flight handles; rescore
+        finalizes it at the fetch)."""
+        if self._last_tick_span is not None:
+            # the previous tick aborted between dispatch and its caller
+            # boundary (an injected fault, a device error): record it
+            # rather than silently overwrite it
+            self._last_tick_span.flag("abandoned")
+            self.scope.finalize(self._last_tick_span)
+            self._last_tick_span = None
+        span = self.scope.begin(self)
+        self._last_tick_span = span
+        if span is not None:
+            span.pending = len(self._pending_feat) + len(self._dirty_rows)
+            span.coalesced = self._scope_coalesced_since
+            span.params_gen = self.params_generation
+            self._scope_coalesced_since = 0
         slab, f_rows, li, pk, rk, gi, f_live, r_live = self._staged_delta()
+        if span is not None:
+            span.mark("pack")
         # fault seams: value poisoning lands on the STAGED rows inside the
         # slab the device reads (the host mirror stays clean: store
         # truth), and the dispatch and pack faults fire after the pending
@@ -907,7 +955,7 @@ class StreamingScorer:
         poisoned = self._fault_value("delta_values", f_rows)
         if poisoned is not f_rows:
             f_rows[...] = poisoned
-        self._screen_delta(f_rows)
+        self._screen_delta(f_rows, span)
         self._fault_point("dispatch")
         self._fault_point("pack")
         dim = self.snapshot.features.shape[1]
@@ -916,6 +964,21 @@ class StreamingScorer:
             slab.done = self._record()
             ints, rows, self._staged_gnn_dev = _delta_pack(slab_dev, li, pk,
                                                            dim, gi)
+            if span is not None:
+                span.mark("staging")
+                # roofline drift: price THIS tick at its padded shapes,
+                # once per shape key
+                self._scope_key = (self.snapshot.padded_nodes,
+                                   self.snapshot.padded_incidents,
+                                   self.width, self.pair_width, pk, rk)
+                self._scope_entry = "streaming.rules_tick"
+                obs_scope.ROOFLINE.model(
+                    self._scope_entry, self._scope_key,
+                    lambda: {"pn": self.snapshot.padded_nodes,
+                             "pi": self.snapshot.padded_incidents,
+                             "width": self.width, "pk": pk, "rk": rk,
+                             "dim": dim},
+                    pack=self._scope_pack)
             out = _tick(self._features_dev, ints, rows, self._ev_idx_dev,
                         self._ev_cnt_dev, self._pair_dev, self._chain0,
                         self.pair_width, pk, rk, self.width, f_live, r_live)
@@ -925,13 +988,25 @@ class StreamingScorer:
         self._fault_point("execute")
         self._fault_point("shard_loss")
         self.dispatches += 1
+        # every device pass scores EVERY live incident on the resident
+        # state (labeled by how many tenants share it: one until item 7)
+        batch = len(self._inc_row_of)
+        obs_metrics.SERVE_BATCH_INCIDENTS.observe(float(batch), tenants="1")
+        if span is not None:
+            span.batch_incidents = batch
+            span.tenants = 1
+            span.mark("dispatch")
         return out
 
-    def _screen_delta(self, f_rows: np.ndarray) -> None:
+    def _screen_delta(self, f_rows: np.ndarray, span) -> None:
         """Finite guard over the staged feature rows (the padded delta:
         its padding rows are zeros), after the pending deltas were drained
         and before they reach the resident state."""
         if self.finite_delta_guard and not np.isfinite(f_rows).all():
+            if span is not None:
+                span.flag("nonfinite_delta")
+                self.scope.finalize(span)
+                self._last_tick_span = None
             raise NonFiniteDelta(
                 f"{int((~np.isfinite(f_rows)).any(axis=-1).sum())} "
                 "non-finite staged feature rows")
@@ -997,6 +1072,7 @@ class StreamingScorer:
         for k in self._HOST_STATE_ATTRS:
             setattr(self, k, state[k])
         self._inflight.clear()
+        self._inflight_meta.clear()
 
     def _resident_arrays(self) -> list:
         """The device-resident tensors a snapshot packs, in a fixed order
@@ -1053,10 +1129,27 @@ class StreamingScorer:
 
     def _retire_ready(self) -> None:
         """Pop completed ticks off the head of the in-flight queue; their
-        results are superseded without ever being fetched."""
+        results are superseded without ever being fetched. Retirement is
+        where the host first observes a queued tick's completion (its
+        CUDA event), so its TickSpan gets its ``execute`` stamp here."""
+        n0 = len(self._inflight)
         while self._inflight and self._tick_ready(self._inflight[0]):
             self._inflight.popleft()
+            self._retire_meta(mark_execute=True)
             self.deferred_fetches += 1
+        if n0 != len(self._inflight):
+            obs_metrics.SERVE_DEFERRED_FETCHES.inc(
+                float(n0 - len(self._inflight)))
+        obs_metrics.SERVE_PIPELINE_INFLIGHT.set(
+            float(len(self._inflight)), pack=self._scope_pack)
+
+    def _retire_meta(self, mark_execute: bool = False) -> None:
+        if not self._inflight_meta:
+            return
+        sp = self._inflight_meta.popleft()
+        if sp is not None and mark_execute:
+            sp.mark("execute")
+        self.scope.finalize(sp)
 
     def _pending_delta_count(self) -> int:
         """Host-side delta entries a coalesced tick would carry."""
@@ -1089,6 +1182,8 @@ class StreamingScorer:
             if pending < self._coalesce_bound:
                 self.coalesced_ticks += 1
                 self.storm_coalesced_ticks += 1
+                self._scope_coalesced_since += 1
+                self.scope.note_coalesced(pending)
                 obs_metrics.SERVE_COALESCED_TICKS.inc()
                 obs_metrics.SERVE_COALESCED_TICK_SIZE.set(float(pending))
                 return {"dispatched": False, "coalesced": True,
@@ -1098,6 +1193,8 @@ class StreamingScorer:
             pending = self._pending_delta_count()
             if pending < self._coalesce_bound:
                 self.coalesced_ticks += 1
+                self._scope_coalesced_since += 1
+                self.scope.note_coalesced(pending)
                 obs_metrics.SERVE_COALESCED_TICKS.inc()
                 obs_metrics.SERVE_COALESCED_TICK_SIZE.set(float(pending))
                 return {"dispatched": False, "coalesced": True,
@@ -1105,10 +1202,22 @@ class StreamingScorer:
                         "pending": pending}
             t0 = time.perf_counter()
             self._wait(self._inflight.popleft())
-            self.stall_seconds += time.perf_counter() - t0
+            stall = time.perf_counter() - t0
+            self.stall_seconds += stall
             self.deferred_fetches += 1
+            # the stall is queue pressure charged to the tick about to
+            # dispatch; the drained tick's completion was just observed
+            self.scope.note_queue_wait(stall)
+            self._retire_meta(mark_execute=True)
+            obs_metrics.SERVE_PIPELINE_STALL_SECONDS.inc(
+                stall, pack=self._scope_pack)
+            obs_metrics.SERVE_DEFERRED_FETCHES.inc()
         out = self.dispatch()
         self._inflight.append(self._tick_handles(out))
+        self._inflight_meta.append(self._last_tick_span)
+        self._last_tick_span = None
+        obs_metrics.SERVE_PIPELINE_INFLIGHT.set(
+            float(len(self._inflight)), pack=self._scope_pack)
         return {"dispatched": True, "coalesced": False,
                 "inflight": len(self._inflight), "pending": 0}
 
@@ -1155,7 +1264,12 @@ class StreamingScorer:
         drop them all, unfetched."""
         if self._inflight:
             self.deferred_fetches += len(self._inflight)
+            obs_metrics.SERVE_DEFERRED_FETCHES.inc(
+                float(len(self._inflight)))
             self._inflight.clear()
+        while self._inflight_meta:
+            self._retire_meta()
+        obs_metrics.SERVE_PIPELINE_INFLIGHT.set(0.0, pack=self._scope_pack)
 
     def serve(self, newest: bool = False) -> dict:
         """Coalesced sync + rescore for concurrent serving callers.
@@ -1212,7 +1326,9 @@ class StreamingScorer:
             return 0.0
         t0 = time.perf_counter()
         self._wait(self._inflight[0])
-        return time.perf_counter() - t0
+        qw = time.perf_counter() - t0
+        self.scope.note_queue_wait(qw)
+        return qw
 
     def rescore(self) -> dict:
         """Caller-boundary tick + fetch. The dispatched tick reflects every
@@ -1227,10 +1343,13 @@ class StreamingScorer:
                  "newest_fetch": False}
         queue_wait_s = self._drain_queue_wait()
         t1 = time.perf_counter()
-        handles = self._tick_handles(self.dispatch())
+        out = self.dispatch()
+        span, self._last_tick_span = self._last_tick_span, None
+        handles = self._tick_handles(out)
         self._supersede_inflight()
         dispatch_s = time.perf_counter() - t1
-        return self._fetch_verdicts(handles, stats, queue_wait_s, dispatch_s)
+        return self._fetch_verdicts(handles, span, stats, queue_wait_s,
+                                    dispatch_s)
 
     def rescore_newest(self) -> dict:
         """Deferred newest-tick fetch: when NO deltas are pending, the
@@ -1247,22 +1366,47 @@ class StreamingScorer:
                  "deferred_fetches": self.deferred_fetches,
                  "newest_fetch": True}
         handles = self._inflight.pop()          # newest submission
+        span = self._inflight_meta.pop() if self._inflight_meta else None
         self._supersede_inflight()              # rest superseded, unfetched
-        return self._fetch_verdicts(handles, stats, 0.0, 0.0)
+        return self._fetch_verdicts(handles, span, stats, 0.0, 0.0)
 
-    def _fetch_verdicts(self, handles: _Tick, stats: dict,
+    def _scope_fetched(self, span) -> None:
+        """The fetched tick's caller boundary: ``fetch`` stamped, the span
+        retired as fetched (stage histograms, spans under a live trace),
+        and the roofline fed the tick's device window: from its
+        ``staging`` stamp (every launch of the tick is enqueued after it)
+        to its ``execute`` stamp (the host saw it complete). That window
+        holds every kernel of the tick whatever the host's launch pace,
+        so modeled bytes over it never exceed the rate the kernels
+        reached; the ``execute`` split alone is shorter than the tick's
+        device time when the launches run behind the device."""
+        span.mark("fetch")
+        at = dict(span.marks)
+        window = at["execute"] - at["staging"]
+        self.scope.finalize(span, fetched=True)
+        obs_scope.ROOFLINE.observe(self._scope_entry, self._scope_key,
+                                   window, pack=self._scope_pack)
+
+    def _fetch_verdicts(self, handles: _Tick, span, stats: dict,
                         queue_wait_s: float, dispatch_s: float) -> dict:
         """One wait for a tick's outputs and their readback → the
-        caller-facing raw verdict dict."""
+        caller-facing raw verdict dict. The wait is the host boundary
+        where the tick's ``execute`` stamp lands."""
         t2 = time.perf_counter()
         self._fault_point("fetch")
         self._wait(handles)
+        if span is not None:
+            span.mark("execute")
         with self._on_stream():
             fetched = tuple(t.cpu().numpy() for t in handles.out)
         fetch_s = time.perf_counter() - t2
+        if span is not None:
+            self._scope_fetched(span)
         conds, matched, scores, top_idx, any_match, top_conf, top_score = (
             fetched)
         self.fetches += 1
+        obs_metrics.SERVE_FETCHED_BYTES.inc(
+            float(sum(a.nbytes for a in fetched)), path="rules_rescore")
         ids, rows = self.live_incidents()
         return {
             "incident_ids": tuple(ids),

@@ -12,6 +12,9 @@ from contextlib import ExitStack
 import numpy as np
 import torch
 
+from ..observability import metrics as obs_metrics
+from ..observability import scope as obs_scope
+
 
 def swap_tenants_atomically(targets, params, source: str = "") -> int:
     """Flip EVERY tenant's resident GNN scorer to one new params generation
@@ -48,4 +51,8 @@ def swap_tenants_atomically(targets, params, source: str = "") -> int:
                                force_sync=True, generation=gen,
                                leaves=leaves, source=source)
             scorer._swap_params_locked(params, gen, source=source)
+    obs_metrics.LEARN_SWAPS.inc()
+    obs_scope.FLIGHT_RECORDER.note_event(
+        "params_swap_atomic", generation=gen, tenants=len(targets),
+        source=source)
     return gen

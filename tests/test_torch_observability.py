@@ -67,12 +67,14 @@ def test_histogram_percentiles_and_exposition_match_jax():
 
 # -- one webhook through each app: spans and the SLO sample -----------------
 
-def _trace_names(tracer, root: str) -> list[str]:
+def _trace_tree(tracer, root: str) -> list[tuple[str, "str | None"]]:
+    """(span name, its parent's name) over the root span's trace, sorted."""
     spans = tracer.export()
-    webhook = [s for s in spans if s["name"] == root]
-    assert webhook, [s["name"] for s in spans]
-    tid = webhook[-1]["trace_id"]
-    return sorted({s["name"] for s in tracer.export(tid)})
+    tid = [s for s in spans if s["name"] == root][-1]["trace_id"]
+    spans = tracer.export(tid)
+    name_of = {s["span_id"]: s["name"] for s in spans}
+    return sorted({(s["name"], name_of.get(s["parent_id"])) for s in spans},
+                  key=lambda p: (p[0], p[1] or ""))
 
 
 def _one_webhook(app_cls, settings, simulator, **kw):
@@ -108,10 +110,10 @@ def _one_webhook(app_cls, settings, simulator, **kw):
 def test_one_webhook_leaves_the_same_spans_and_slo_sample():
     """The webhook span roots the incident's trace and the workflow steps
     up to the verdict join it (serving the verdict closes the arrival
-    record that carries the trace), in both apps; each closes one
-    webhook→verdict sample. The JAX scorer's own tick spans
-    (``serve.tick``, ``tick.*``) are left out: the port's scorers do not
-    emit them yet (ROADMAP item 8)."""
+    record that carries the trace), in both apps, with the resident
+    scorer's fetched tick under the verdict step (``serve.tick`` and its
+    ``tick.*`` stages): the same span names, each under the same parent;
+    each app closes one webhook→verdict sample."""
     from kubernetes_aiops_evidence_graph_tpu import simulator as j_sim
     from kubernetes_aiops_evidence_graph_tpu.app import AiopsApp as JApp
     from kubernetes_aiops_evidence_graph_tpu.config import load_settings as js
@@ -133,12 +135,22 @@ def test_one_webhook_leaves_the_same_spans_and_slo_sample():
         _one_webhook(App, S, sim, **kw)
         assert sum(lat._totals.values()) == before + 1
         assert scope.SCOPE.pending() == 0
-        names[key] = [n for n in _trace_names(obs.TRACER,
-                                              "webhook.alertmanager")
-                      if n != "serve.tick" and not n.startswith("tick.")]
-    assert names["port"] == names["jax"] == [
+        names[key] = _trace_tree(obs.TRACER, "webhook.alertmanager")
+    assert names["port"] == names["jax"]
+    tree = dict(names["port"])
+    assert {n: tree[n] for n in (
         "webhook.alertmanager", "workflow.build_graph",
-        "workflow.collect_evidence", "workflow.generate_hypotheses"]
+        "workflow.collect_evidence", "workflow.generate_hypotheses",
+        "serve.tick")} == {
+        "webhook.alertmanager": None,
+        "workflow.build_graph": "webhook.alertmanager",
+        "workflow.collect_evidence": "webhook.alertmanager",
+        "workflow.generate_hypotheses": "webhook.alertmanager",
+        "serve.tick": "workflow.generate_hypotheses"}
+    stages = [n for n in tree if n.startswith("tick.")]
+    assert {"tick.pack", "tick.staging", "tick.dispatch",
+            "tick.fetch"} <= set(stages)
+    assert all(tree[n] == "serve.tick" for n in stages)
 
 
 # -- the scope primitives -----------------------------------------------------
