@@ -191,13 +191,37 @@ the learned model's training, offline (``rca/train.py``) and online
    tick's shapes, achieved bytes/s above 0 and at most 105% of 3.35
    TB/s, drift in (0, 1], halo 0), each kernel launched once a tick (gms
    L times), the verdicts and packed state with the scope on equal to
-   those with it off; ``observability.device_trace`` over three ticks of
-   each scorer naming every kernel the wrappers counted, as often; the
-   scope's cost a tick (microbench) and the dispatch p50 on and off,
-   printed; the online learner's ``aiops_learn_*`` counters of phase 10
-   (fine-tune steps, swaps and generation checked there). An
+   those with it off, each twin first on every other tick;
+   ``observability.device_trace`` over three ticks of each scorer naming
+   every kernel the wrappers counted, as often; the dispatch p50 on and
+   off, printed; the scope's cost a tick (microbench) under 1% of the
+   card's depth-2 steady-state rules tick wall (5 events a tick,
+   ``tick_async`` each, a ``rescore`` every 10), the median of three
+   pairs, gated; the online learner's ``aiops_learn_*`` counters of
+   phase 10 (fine-tune steps, swaps and generation checked there). An
    ``{"observability": {...}}`` line;
-17. prints a ``{"gms_compare": {...}}`` line (the message pass split by
+17. multi-tenant packing and the fleet (``run_surge``, ROADMAP item 7):
+   four config-4 worlds (10,000 pods and 100 incidents each, seeds 0-3)
+   on one ``MultiTenantScorer`` (262,144 node rows, 4,096 incident rows)
+   beside a single-tenant ``StreamingScorer`` per tenant; 2,000 full-mix
+   churn events a tenant in rounds of 25 a tenant, one pack tick a round,
+   every tenant's verdicts from a ``serve(newest=True)`` every 5 rounds
+   and from the last serve bit-equal to its single's, ``rules_fold`` once
+   a pack tick, B1 against its plain version on the pack's resident state
+   and timed there; a NaN row in one tenant's staged delta quarantines
+   only that tenant and the next serve heals it, bit-equal; a
+   ``SurgeServer`` of two packs of two (fleet WAL in a temporary
+   directory) migrates a tenant live mid-churn and recovers a crash at a
+   migration's source-repack boundary to exactly one owner;
+   ``ElasticController.observe()`` over a fleet pack holds on the ladder
+   ``(1,)``; an ``AiopsApp`` (webhooks) and a second ``IncidentWorker``
+   serve two 10,000-pod tenants from one pack, 100 incidents each, every
+   incident closed with the pack's verdict and ``GET /api/v1/fleet``
+   naming both. A ``{"surge": {...}}`` line (host seconds a pack tick
+   beside the four singles', each arm first on every other round, B1's device
+   ms a pack tick and bound, launches and device passes, migration
+   seconds, the elastic decision);
+18. prints a ``{"gms_compare": {...}}`` line (the message pass split by
    kernel at config 3, forward and dh, and config 4; the hub probe; the
    learned forward, the train step, the ticks per tier, each split by
    kernel, and learned events/s; ``grad_w`` per launch at the trainer's
@@ -207,8 +231,9 @@ the learned model's training, offline (``rca/train.py``) and online
    the backward's dh and dw there, of the fused and streamed ticks' logits
    on config 4's resident state after the churn, of ``grad_w``'s dw on the
    offline trainer's first batch and on the online learner's config-4
-   episode, and of ``rules_fold``'s seven outputs at config 3 and on the
-   config-4 rules run's resident state, each with its inputs' digest;
+   episode, and of ``rules_fold``'s seven outputs at config 3, on the
+   config-4 rules run's resident state and on the surge pack's, each with
+   its inputs' digest;
    ``--state-dir`` keeps those inputs too), one ``{"kernels": [...]}`` line with
    each kernel's launches on the main paths, its time, the plain
    version's time and its bound, then the nvidia-smi line, then
@@ -226,6 +251,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
+import gc
 import json
 import os
 import re
@@ -424,27 +451,58 @@ def build_world(num_pods: int, num_incidents: int, seed: int = 0):
     return incidents, evidence, snapshot
 
 
-def device_ms(fn, iters: int = 20, by_kernel: bool = False):
+PROFILE_LEAD_KERNELS = 128
+"""Spin kernels that open each of ``device_ms``'s profiler sessions, left
+out of its sum: late in a long process an H100 session was seen to lose
+the records of its first ten or so kernels (as ``device_trace`` found),
+which pulls a mean over the session's calls down. Some sessions lost the
+leads and calls beyond them too, so ``device_ms`` checks the records."""
+
+
+def device_ms(fn, iters: int = 20, by_kernel: bool = False,
+              ceiling_ms: "float | None" = None):
     """Mean device-busy time of ``fn`` in ms, from the profiler's CUDA
     activity (CUPTI): the sum of the kernels' and copies' own device time
-    over ``iters`` calls. 0.0 when the profiler saw no device activity in
-    three sessions (CUPTI now and then reports none for a whole session,
-    so an empty one is profiled again). With ``by_kernel``, a dict of
-    that time per kernel name instead."""
+    over ``iters`` calls, in a session opened by ``PROFILE_LEAD_KERNELS``
+    spin kernels. A session is profiled again, three sessions in all,
+    when its records of some kernel are not a whole number a call (a
+    record lost all the same), when its sum exceeds ``ceiling_ms`` (the
+    stream's own time a call, which device-busy time cannot exceed), or
+    when it saw no device activity (CUPTI now and then reports none for a
+    whole session); each rejected session's records are logged. 0.0 when
+    none saw any activity, and an error when every one that did was
+    rejected. With ``by_kernel``, a dict of that time per kernel name
+    instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    rejected = 0
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD_KERNELS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        per = {e.key: e.self_device_time_total / iters / 1e3
-               for e in prof.key_averages() if e.self_device_time_total > 0}
-        if per:
-            break
-    return per if by_kernel else sum(per.values())
+        rows = [(e.key, e.count, e.self_device_time_total / iters / 1e3)
+                for e in prof.key_averages() if e.self_device_time_total > 0]
+        per = {k: ms for k, _, ms in rows if "spin_kernel" not in k}
+        if not per:
+            continue
+        whole = all(n % iters == 0 for k, n, _ in rows
+                    if "spin_kernel" not in k)
+        if whole and (ceiling_ms is None
+                      or sum(per.values()) <= ceiling_ms):
+            return per if by_kernel else sum(per.values())
+        rejected += 1
+        log(f"device_ms: session rejected ({iters} calls, ceiling "
+            f"{ceiling_ms} ms): {[(k[:70], n, ms) for k, n, ms in rows]}")
+    if rejected:
+        raise AssertionError(f"device_ms: all {rejected} sessions with "
+                             f"device activity rejected (see the log)")
+    return {} if by_kernel else 0.0
 
 
 def kernel_split(fn, iters: int = 20) -> dict:
@@ -505,7 +563,11 @@ def timed(kernel, plain, plain_iters: int = 10) -> dict:
     host launch cost included)."""
     t = {"ms_per_call": cuda_ms(kernel),
          "plain_ms_per_call": cuda_ms(plain, iters=plain_iters, warmup=2)}
-    t["ms"], t["plain_ms"] = device_ms(kernel), device_ms(plain, iters=plain_iters)
+    # device-busy time a call cannot exceed the stream's own (5% for the
+    # timers' spread)
+    t["ms"] = device_ms(kernel, ceiling_ms=1.05 * t["ms_per_call"])
+    t["plain_ms"] = device_ms(plain, iters=plain_iters,
+                              ceiling_ms=1.05 * t["plain_ms_per_call"])
     t["timed_by"] = "profiler"
     if t["ms"] <= 0.0 or t["plain_ms"] <= 0.0:
         t["ms"], t["plain_ms"] = t["ms_per_call"], t["plain_ms_per_call"]
@@ -2215,8 +2277,9 @@ def _metric_total(text: str, name: str) -> float:
 
 
 def histogram_counts(hist, **match) -> tuple[list, int]:
-    """A histogram's cumulative bucket counts and sample count, summed
-    over the label sets whose labels include ``match``."""
+    """A histogram's bucket counts (as it keeps them: per bucket) and
+    sample count, summed over the label sets whose labels include
+    ``match``."""
     counts, total = [0] * len(hist.buckets), 0
     with hist._lock:
         for key, cs in hist._counts.items():
@@ -3423,6 +3486,15 @@ STAGE_ORDER = ("queue_wait", "pack", "staging", "dispatch", "gnn_dispatch",
 OBS_TIERS = ("rules", "composed", "fused", "dma")
 """The scorers phase 16 drives under the scope: the rules scorer and the
 learned scorer's float32 tiers."""
+OBS_ORDER = (("rules", "rules_off", "composed", "composed_off", "fused", "dma"),
+             ("rules_off", "rules", "composed_off", "composed", "fused", "dma"))
+"""Phase 16's scorer order on even and odd ticks: each telemetry twin
+(scope on, scope off) goes first on every other tick (on, off, off, on),
+so neither arm's dispatch times carry the cost of its place."""
+SCOPE_BATCH = 5
+"""Events a tick in the scope's cost contract (``tests/test_scope.py``):
+the serving batches are 50-100, and a smaller batch shrinks the tick
+wall, never the telemetry's cost."""
 ANCHOR_LIMIT = 1.05
 """A measured anchor or achieved rate above this share of its data-sheet
 ceiling means the timer (or the modeled work) is wrong."""
@@ -3463,6 +3535,29 @@ def scope_cost_us(scorer, reps: int = 2000) -> float:
     for i in range(reps):
         one_tick(i % 10 == 9)
     return (time.perf_counter() - t0) / reps * 1e6
+
+
+def steady_tick_wall_s(scorer, cluster, builder, events: int = 300,
+                       seed: int = 21) -> float:
+    """The depth-2 steady-state tick wall of the scope's cost contract
+    (``tests/test_scope.py``): feature-only churn mirrored into
+    ``scorer`` ``SCOPE_BATCH`` events a tick, ``tick_async`` each tick and
+    a ``rescore`` every 10 ticks; seconds a tick."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        churn_events, stream_step)
+    stream = list(churn_events(
+        cluster, events, seed=seed, structural=False,
+        incident_ids=tuple(builder.store.incident_ids())))
+    t0 = time.perf_counter()
+    n_ticks = 0
+    for i in range(0, len(stream), SCOPE_BATCH):
+        for ev in stream[i:i + SCOPE_BATCH]:
+            stream_step(cluster, builder.store, scorer, ev)
+        scorer.tick_async()
+        n_ticks += 1
+        if n_ticks % 10 == 0:
+            scorer.rescore()
+    return (time.perf_counter() - t0) / n_ticks
 
 
 def scope_records(scorer, calls: list) -> list:
@@ -3533,11 +3628,14 @@ def run_observability(dev, snapshot, c3_backend, b1_profiler_ms: float,
       by their ``tick.*`` children within 5%, the roofline gauges (modeled
       bytes = ``tick_cost``, achieved bytes/s in (0, 105%] of the ceiling,
       drift in (0, 1], no halo), verdicts and packed state equal with the
-      telemetry on and off;
+      telemetry on and off; each twin goes first on every other tick
+      (``OBS_ORDER``);
     * ``device_trace`` over three ticks of each scorer names every kernel
       the wrappers counted, as often as they counted it;
-    * the telemetry's cost, printed: the scope's per-tick operations
-      (microbench) and the dispatch p50 with it on and off."""
+    * the telemetry's cost: the dispatch p50 with it on and off, and the
+      gate: the scope's per-tick operations (microbench) under 1% of the
+      depth-2 steady-state rules tick wall (``steady_tick_wall_s``) on the
+      same world, the median of three pairs."""
     import tempfile
 
     import torch
@@ -3677,7 +3775,8 @@ def run_observability(dev, snapshot, c3_backend, b1_profiler_ms: float,
             store_step(cluster, builder.store, ev)
         n_ticks += 1
         serve_now = n_ticks % 5 == 0
-        for key, s in scorers.items():
+        for key in OBS_ORDER[n_ticks % 2]:
+            s = scorers[key]
             lo = ring()
             s.sync()
             t0 = time.perf_counter()
@@ -3805,20 +3904,546 @@ def run_observability(dev, snapshot, c3_backend, b1_profiler_ms: float,
     log(f"device_trace: each scorer's kernels as the wrappers counted them: "
         f"{traces}")
 
-    # -- the telemetry's cost (printed, not gated) ---------------------------
-    cost_us = scope_cost_us(scorers["rules"])
-    cost = {"scope_us_per_tick": cost_us,
+    # -- the telemetry's cost against the 1% contract (gated) --------------
+    # the contract of tests/test_scope.py: the scope's per-tick operations
+    # (microbench) under 1% of the depth-2 steady-state rules tick wall on
+    # the same world, here on the card's own wall. The card's host is
+    # shared and noisy, so three pairs (300 ticks, then 10,000 microbench
+    # ticks; the JAX test times 60 and 2,000 once), the median pair's
+    # share gated; a collection before each window (a full collection of
+    # the long process's heap lands in either at random), and the serving
+    # default flight ring (the phase's own holds 65,536 records for its
+    # checks). This machine's thread CPU clock ticks in 10 ms, too coarse
+    # for these windows
+    wall_cfg = dataclasses.replace(
+        settings, serve_pipeline_depth=2,
+        scope_flight_records=type(settings)().scope_flight_records)
+    wall_scorer = StreamingScorer(builder.store, wall_cfg, now_s=now_s,
+                                  device=dev)
+    wall_scorer.rescore()
+    pairs = []
+    with kept_counts():
+        # a first pass warms the fresh scorer's slabs and allocator: the
+        # contract's tick is the steady state's (and a shorter tick is the
+        # stricter gate)
+        steady_tick_wall_s(wall_scorer, cluster, builder, events=100,
+                           seed=20)
+        for i in range(3):
+            gc.collect()
+            wall_s = steady_tick_wall_s(wall_scorer, cluster, builder,
+                                        events=300 * SCOPE_BATCH, seed=21 + i)
+            gc.collect()
+            us = scope_cost_us(wall_scorer, reps=10_000)
+            pairs.append({"tick_wall_ms": wall_s * 1e3, "scope_us": us,
+                          "share": us * 1e-6 / wall_s})
+    pairs.sort(key=lambda p: p["share"])
+    share = pairs[1]["share"]
+    cost = {"scope_us_per_tick": pairs[1]["scope_us"],
+            "tick_wall_ms": pairs[1]["tick_wall_ms"],
+            "share_of_tick_wall": share, "pairs": pairs,
+            "batch_events": SCOPE_BATCH,
+            "order": [list(o) for o in OBS_ORDER],
             **{f"{t}_dispatch_p50_ms_{state}": statistics.median(
                 dispatch_s[t if state == "on" else f"{t}_off"]) * 1e3
                for t in ("rules", "composed") for state in ("on", "off")}}
-    for s in scorers.values():
+    for s in (*scorers.values(), wall_scorer):
         s._drop_stale_inflight()
     log(f"telemetry cost: {cost}")
+    if share >= 0.01:
+        raise AssertionError(
+            f"the scope costs {share:.2%} of the depth-2 steady-state rules "
+            f"tick, not under 1%: {pairs}")
     return {"anchors": anchors, "b1_config3": b1, "forward_config3": fwd,
             "config4": per_tier, "bits_on_off": bits, "launches": launches,
             "device_trace": traces,
             "telemetry_cost": cost, "ticks": n_ticks,
             "phase_s": time.perf_counter() - t_phase}
+
+
+# -- phase 17: multi-tenant packing and the tenant fleet (ROADMAP item 7) --
+
+SURGE_TENANTS = 4
+"""Tenants of phase 17's pack: config-4 worlds with seeds 0-3."""
+
+
+def surge_parity(pack, singles: dict, what: str, raw=None) -> int:
+    """Each tenant's verdicts from one pack serve (``raw``, or a fresh
+    ``serve(newest=True)``) equal to its single-tenant scorer's, bit for
+    bit (``bit_equal_verdicts``). Returns the incidents compared."""
+    per = pack.tenant_rows(pack.serve(newest=True) if raw is None else raw)
+    return sum(bit_equal_verdicts(per.get(name, {"incident_ids": ()}),
+                                  sc.serve(newest=True), f"{what}: {name}")
+               for name, sc in singles.items())
+
+
+def surge_app(dev, num_pods: int, num_incidents: int, seed: int,
+              deadline_s: float = APP_DEADLINE_S) -> dict:
+    """Two workers, two tenants, one ``SurgeServer``: ``AiopsApp`` with
+    ``surge=`` (its worker is tenant ``default``; Alertmanager webhooks
+    over HTTP, as ``served_app`` posts them) and a second
+    ``IncidentWorker`` (tenant ``tenant-b``, its own cluster, store and
+    database; incidents on its queue, as tests/test_surge.py drives it),
+    run side by side until every incident of both is closed. Both serve
+    from the same pack; each incident's hypotheses come from it
+    (``generate_hypotheses`` in streaming mode) and its top rule is one
+    the pack served for it, the pack's last verdicts equal bit for bit
+    those of a single-tenant scorer built on each tenant's final store,
+    and ``GET /api/v1/fleet`` answers ``enabled`` with both tenants."""
+    import asyncio
+    import threading
+
+    from kubernetes_aiops_evidence_graph_tpu_torch.app import AiopsApp
+    from kubernetes_aiops_evidence_graph_tpu_torch.config import load_settings
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph import (
+        GraphBuilder, build_snapshot)
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph.topology_sync import (
+        sync_topology)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import RULES, get_backend
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
+        StreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.surge import (
+        MultiTenantScorer, SurgeServer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator import (
+        SCENARIOS, generate_cluster, inject)
+    from kubernetes_aiops_evidence_graph_tpu_torch.storage import Database
+    from kubernetes_aiops_evidence_graph_tpu_torch.workflow import (
+        IncidentWorker)
+
+    settings = load_settings(api_port=0, db_path=":memory:",
+                             remediation_dry_run=False,
+                             verification_wait_seconds=0, rca_backend="tpu")
+    srv = SurgeServer(settings, device=dev)
+    cluster_a, alerts = app_alerts(num_pods, num_incidents, seed)
+    app = AiopsApp(cluster_a, settings, surge=srv, device=dev)
+    sync_topology(cluster_a, app.store)
+    cluster_b = generate_cluster(num_pods=num_pods, seed=seed + 1)
+    builder_b = GraphBuilder()
+    sync_topology(cluster_b, builder_b.store)
+    db_b = Database(":memory:")
+    worker_b = IncidentWorker(cluster_b, db_b, builder=builder_b,
+                              settings=settings, concurrency=2, surge=srv,
+                              tenant="tenant-b", device=dev)
+    rng = np.random.default_rng(seed + 1)
+    keys, names = sorted(cluster_b.deployments), sorted(SCENARIOS)
+    incs_b = [inject(cluster_b, names[i % len(names)],
+                     keys[(i * 7) % len(keys)], rng)
+              for i in range(num_incidents)]
+    for inc in incs_b:
+        db_b.create_incident(inc)
+    stats_b: dict = {}
+    closed: dict[str, str] = {}
+    # every top rule the pack served, by (tenant, incident)
+    pack_tops: dict = collections.defaultdict(set)
+    tops_lock = threading.Lock()
+    real_serve = MultiTenantScorer.serve
+
+    def recording_serve(self, *args, **kw):
+        out = real_serve(self, *args, **kw)
+        with tops_lock:
+            for tenant, rows in self.tenant_rows(out).items():
+                for i, nid in enumerate(rows["incident_ids"]):
+                    pack_tops[(tenant, nid)].add(
+                        RULES[int(rows["top_rule_index"][i])].id
+                        if rows["any_match"][i] else "unknown")
+        return out
+
+    MultiTenantScorer.serve = recording_serve
+    l0 = read_counts()["rules_fold"]
+    try:
+        base = f"http://127.0.0.1:{app.start(host='127.0.0.1')}"
+        t_start = time.perf_counter()
+        thread_b = threading.Thread(target=lambda: stats_b.update(
+            asyncio.run(worker_b.run_all(incs_b))))
+        thread_b.start()
+        created = []
+        for b in range(0, len(alerts), 5):
+            out = _http(base, "/api/v1/webhooks/alertmanager",
+                        {"alerts": alerts[b:b + 5]})
+            created += out["created"]
+        while len(closed) < len(created) or thread_b.is_alive():
+            if time.perf_counter() - t_start > deadline_s:
+                raise AssertionError(f"surge app: not closed within "
+                                     f"{deadline_s} s ({len(closed)} of "
+                                     f"{len(created)}; tenant-b {stats_b})")
+            for iid in created:
+                if iid not in closed:
+                    st = _http(base, f"/api/v1/incidents/{iid}/status")
+                    if st["state"] == "failed":
+                        raise AssertionError(f"surge app: {iid} failed")
+                    if "close_incident" in st["completed"]:
+                        closed[iid] = st["steps"]["generate_hypotheses"][
+                            "result"]["mode"]
+            time.sleep(0.01)
+        thread_b.join()
+        wall = time.perf_counter() - t_start
+        if stats_b != {"completed": num_incidents, "failed": 0}:
+            raise AssertionError(f"surge app: tenant-b {stats_b}")
+        pack = app.worker.scorer
+        if type(pack) is not MultiTenantScorer or worker_b.scorer is not pack \
+                or pack._tenant_count() != 2:
+            raise AssertionError(f"surge app: the workers serve from "
+                                 f"{type(pack).__name__} and "
+                                 f"{type(worker_b.scorer).__name__}")
+        fleet = _http(base, "/api/v1/fleet")
+        if not fleet["enabled"] or fleet["packs"]["0"]["tenants"] != [
+                "default", "tenant-b"]:
+            raise AssertionError(f"surge app: /api/v1/fleet {fleet}")
+        served = {}
+        for iid, mode in closed.items():
+            served[("default", f"incident:{iid}")] = _http(
+                base, f"/api/v1/incidents/{iid}/hypotheses")["hypotheses"]
+            if mode != "streaming":
+                raise AssertionError(f"surge app: {iid} scored by the "
+                                     f"{mode} path")
+        for inc in incs_b:
+            gh = db_b.journal_get(f"incident-{inc.id}")["generate_hypotheses"]
+            if gh["result"]["mode"] != "streaming":
+                raise AssertionError(f"surge app: tenant-b {inc.id} scored "
+                                     f"by the {gh['result']['mode']} path")
+            served[("tenant-b", f"incident:{inc.id}")] = db_b.hypotheses_for(
+                inc.id)
+        # each stored top rule is one the pack served for that incident
+        foreign = [k for k, hyps in served.items()
+                   if not hyps or hyps[0]["rule_id"] not in pack_tops[k]]
+        if foreign:
+            raise AssertionError(f"surge app: {len(foreign)} stored top rules "
+                                 f"the pack never served {foreign[:4]}")
+        launches = read_counts()["rules_fold"] - l0
+        # the pack's last verdicts against a single-tenant scorer built
+        # fresh on each tenant's final store, bit for bit (the pack's
+        # contract); beside them, how many stored top rules the snapshot
+        # path (B1) on the final store no longer gives: a later incident's
+        # evidence can change an earlier verdict, and the streaming and
+        # snapshot paths can differ on MULTIPLE_PODS_SAME_NODE where
+        # incidents crowd a node, in the reference as here (comparisons:
+        # not counted)
+        per = pack.tenant_rows(pack.serve())
+        changed = 0
+        with kept_counts():
+            for tenant, store in (("default", app.store),
+                                  ("tenant-b", builder_b.store)):
+                single = StreamingScorer(store, settings, now_s=pack.now_s,
+                                         device=dev)
+                bit_equal_verdicts(per[tenant], single.serve(),
+                                   f"surge app: {tenant}'s final verdicts")
+                ref = get_backend("tpu", device=dev).score_snapshot(
+                    build_snapshot(store, settings, now_s=pack.now_s))
+                changed += sum(
+                    served[(tenant, nid)][0]["rule_id"] != (
+                        RULES[int(ref["top_rule_index"][i])].id
+                        if ref["any_match"][i] else "unknown")
+                    for i, nid in enumerate(ref["incident_ids"])
+                    if (tenant, nid) in served)
+        if dev.type == "cuda" and launches < 1:
+            raise AssertionError("surge app: rules_fold never launched")
+        return {"incidents": {"default": len(closed),
+                              "tenant-b": len(incs_b)},
+                "top_rule_changed_since_served": changed,
+                "wall_s": wall, "pack_ticks": pack.dispatches,
+                "rules_fold_launches": launches,
+                "fleet": {k: fleet[k] for k in ("enabled", "packs",
+                                                "placement")}}
+    finally:
+        MultiTenantScorer.serve = real_serve
+        app.stop()
+        db_b.close()
+
+
+def run_surge(dev, num_pods: int = 10_000, num_incidents: int = 100,
+              events: int = 2000, per_round: int = 25, serve_every: int = 5,
+              app_pods: int = 10_000, app_incidents: int = 100,
+              seed: int = 0) -> dict:
+    """Phase 17 (ROADMAP item 7): multi-tenant packing and the tenant
+    fleet on the card, through ``rules_fold`` (B1).
+
+    * pack parity: ``SURGE_TENANTS`` config-4 worlds (seeds 0-3) on one
+      ``MultiTenantScorer`` beside a single-tenant ``StreamingScorer`` per
+      tenant, all on one replay clock; ``events`` full-mix churn events a
+      tenant in rounds of ``per_round`` a tenant (tests/test_surge.py's
+      A/B), one pack tick a round (sync + ``tick_async``, timed beside the
+      four singles' ticks; the pack first on even rounds, the singles on
+      odd ones), every tenant's verdicts from a
+      ``serve(newest=True)`` every ``serve_every`` rounds and from a
+      final ``serve()`` bit-equal to its single's; ``rules_fold`` once a
+      pack tick; the pack's widths the widest tenant's; B1 against its
+      plain version on the pack's resident state, timed there;
+    * quarantine and heal: a NaN row staged in one tenant's region with
+      every tenant's churn: only that tenant is quarantined, the tick
+      proceeds, the other three keep their bits, the resident state stays
+      finite, and the next serve heals it from its store, bit-equal;
+    * the fleet: ``SurgeServer`` with two packs of two (fleet WAL in a
+      temporary directory): greedy placement, each pack's telemetry under
+      its own label, a live migration of one tenant from pack 0 to pack 1
+      in the middle of a churn (exactly one owner, its verdicts bit-equal
+      to its single before and after), then a crash at the source-repack
+      boundary of a second migration (the fault injector's ``migrate``
+      stage) and a fresh server on the same WAL: exactly one owner, the
+      tenant's verdicts bit-equal from its new pack;
+    * elastic: ``ElasticController.observe()`` over a fleet pack (the
+      controller reads a shield's ``scorer``; the crash shield wraps one
+      store and stays off packs, as in the reference): on one card the
+      ladder is ``(1,)`` and the decision holds, its drift the pack's own
+      roofline series;
+    * the app: ``surge_app``."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.observability.scope import (
+        ROOFLINE)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.elastic import (
+        ElasticController)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.faults import (
+        Fault, FaultInjector, InjectedFault)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
+        StreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.surge import (
+        MultiTenantScorer, SurgeServer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        churn_events, store_step)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+
+    # -- the worlds, the pack and the singles ------------------------------
+    worlds = {}
+    for t in range(SURGE_TENANTS):
+        settings, cluster, builder, _ = streaming_world(
+            num_pods, num_incidents, seed + t)
+        worlds[f"t{t}"] = (cluster, builder)
+    world_s = time.perf_counter() - t_phase
+    now_s = max(c.now.timestamp() for c, _ in worlds.values())
+    stores = {name: b.store for name, (_, b) in worlds.items()}
+    t0 = time.perf_counter()
+    pack = MultiTenantScorer(stores, settings, now_s=now_s, device=dev)
+    pack_build_s = time.perf_counter() - t0
+    singles = {name: StreamingScorer(store, settings, now_s=now_s,
+                                     device=dev)
+               for name, store in stores.items()}
+    compared = surge_parity(pack, singles, "surge pack, cold")
+    widths = {n: (s.width, s.pair_width) for n, s in singles.items()}
+    if (pack.width, pack.pair_width) != tuple(map(max, zip(*widths.values()))):
+        raise AssertionError(f"surge pack widths {pack.width}/"
+                             f"{pack.pair_width}, the singles' {widths}")
+    shape = {"Pn": pack.snapshot.padded_nodes,
+             "Pi": pack.snapshot.padded_incidents, "W": pack.width,
+             "Wr": pack.pair_width, "single_widths": widths,
+             "regions": {r.name: {"pn": r.pn, "pi": r.pi}
+                         for r in pack._regions_order}}
+    log(f"surge pack: {shape}, built in {pack_build_s:.2f} s; cold verdicts "
+        f"== the singles' on {compared} incidents")
+
+    # -- pack parity over churn ---------------------------------------------
+    streams = {name: list(churn_events(
+        c, events, seed=seed + 101 + t,
+        incident_ids=tuple(b.store.incident_ids())))
+        for t, (name, (c, b)) in enumerate(worlds.items())}
+    rounds = (events + per_round - 1) // per_round
+    # host seconds a round by arm, and by which arm went first
+    pack_s, singles_s, serves = ([], []), ([], []), 0
+    launches = {"pack": 0, "singles": 0, "quarantine": 0, "fleet": 0}
+    d_pack = pack.dispatches
+    d_singles = sum(s.dispatches for s in singles.values())
+
+    def counted(key, fn):
+        l0 = read_counts()["rules_fold"]
+        out = fn()
+        launches[key] += read_counts()["rules_fold"] - l0
+        return out
+
+    def tick_all(scorers) -> None:
+        for s in scorers:
+            s.sync()
+            s.tick_async()
+
+    for r in range(rounds):
+        for name, (cluster, builder) in worlds.items():
+            for ev in streams[name][r * per_round:(r + 1) * per_round]:
+                store_step(cluster, builder.store, ev)
+        arms = (("pack", (pack,), pack_s), ("singles", singles.values(),
+                                            singles_s))
+        for key, scorers, secs in (arms if r % 2 == 0 else arms[::-1]):
+            t1 = time.perf_counter()
+            counted(key, functools.partial(tick_all, scorers))
+            secs[r % 2].append(time.perf_counter() - t1)
+        if (r + 1) % serve_every == 0:
+            raw = counted("pack", lambda: pack.serve(newest=True))
+            counted("singles", lambda: surge_parity(
+                pack, singles, f"surge round {r + 1}", raw))
+            serves += 1
+    raw = counted("pack", pack.serve)
+    compared = counted("singles", lambda: surge_parity(
+        pack, singles, "surge after the churn", raw))
+    if on_card:
+        torch.cuda.synchronize()
+    passes = {"pack": pack.dispatches - d_pack,
+              "singles": sum(s.dispatches for s in singles.values())
+              - d_singles}
+    if on_card and (launches["pack"], launches["singles"]) != (
+            passes["pack"], passes["singles"]):
+        raise AssertionError(f"surge: rules_fold launches {launches}, "
+                             f"device passes {passes}: one a tick")
+    log(f"surge churn: {rounds} rounds, {serves} checked serves, "
+        f"{compared} incidents bit-equal to the singles at the end; "
+        f"passes {passes}, rebuilds pack {pack.rebuilds} singles "
+        f"{[s.rebuilds for s in singles.values()]}")
+    kernel = {"launches": dict(launches), "device_passes": passes,
+              "device_passes_ratio": passes["pack"] / max(passes["singles"],
+                                                          1)}
+    if on_card:
+        args, err = resident_kernel_check(
+            pack, "surge pack resident tensors after the churn")
+        rules_digests("surge_pack", args, pack.pair_width)
+        kernel.update(max_abs_err=err, **{
+            k: v for k, v in kernel_timing(args, pack.pair_width).items()
+            if k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
+                     "ms_per_call", "ms_by_kernel", "timed_by")})
+        one, _ = resident_kernel_check(singles["t0"],
+                                       "surge single t0 resident tensors")
+        kernel["single_t0_ms"] = kernel_timing(
+            one, singles["t0"].pair_width)["ms"]
+
+    # -- quarantine and heal --------------------------------------------------
+    victim = "t1"
+    pack.finite_delta_guard = True
+    extra = {name: list(churn_events(
+        c, per_round, seed=seed + 201 + t,
+        incident_ids=tuple(b.store.incident_ids())))
+        for t, (name, (c, b)) in enumerate(worlds.items())}
+    for name, (cluster, builder) in worlds.items():
+        for ev in extra[name]:
+            store_step(cluster, builder.store, ev)
+    pack.sync()
+    reg = pack.regions[victim]
+    pack._pending_feat[reg.node_base + 3] = np.full(
+        pack.snapshot.features.shape[1], np.nan, np.float32)
+    q0, h0 = pack.quarantines, pack.tenant_rebuilds
+    raw = counted("quarantine", pack.rescore)      # does not raise
+    quarantined = sorted(n for n, g in pack.regions.items() if g.quarantined)
+    if quarantined != [victim] or pack.quarantines != q0 + 1:
+        raise AssertionError(f"surge quarantine: {quarantined}")
+    if not bool(torch.isfinite(pack._features_dev).all()):
+        raise AssertionError("surge quarantine: the poison reached the "
+                             "resident features")
+    others = {n: s for n, s in singles.items() if n != victim}
+    surge_parity(pack, others, "surge quarantine, the other tenants", raw)
+    t1 = time.perf_counter()
+    raw = counted("quarantine", pack.serve)          # heals the victim
+    heal_s = time.perf_counter() - t1
+    if pack.regions[victim].quarantined or pack.tenant_rebuilds != h0 + 1:
+        raise AssertionError("surge heal: the tenant was not healed")
+    surge_parity(pack, singles, "surge after the heal", raw)
+    pack.finite_delta_guard = False
+    log(f"surge quarantine: only {victim} quarantined, the others kept their "
+        f"bits; healed in {heal_s:.3f} s, bit-equal")
+
+    # -- the fleet: two packs of two, a live migration, a crash -------------
+    fleet_cfg = dataclasses.replace(settings, swell_max_packs=2,
+                                    swell_pack_tenants=2)
+    wal_dir = tempfile.mkdtemp(prefix="kaeg-fleet-")
+    wal = os.path.join(wal_dir, "fleet.jsonl")
+    srv = SurgeServer(fleet_cfg, journal_path=wal, device=dev, now_s=now_s)
+    for name, store in stores.items():
+        srv.register(name, store)
+    want = {"t0": 0, "t1": 0, "t2": 1, "t3": 1}
+    if srv.fleet()["placement"] != want:
+        raise AssertionError(f"surge fleet placement {srv.fleet()}")
+    p0, p1 = srv.scorer("t0"), srv.scorer("t2")
+    if srv.scorer("t1") is not p0 or srv.scorer("t3") is not p1 or \
+            (p0._scope_pack, p1._scope_pack) != ("0", "1"):
+        raise AssertionError("surge fleet: packs or their labels")
+    owner = {n: srv.scorer(n) for n in stores}
+    fleet_streams = {name: list(churn_events(
+        c, 8 * per_round, seed=seed + 301 + t,
+        incident_ids=tuple(b.store.incident_ids())))
+        for t, (name, (c, b)) in enumerate(worlds.items())}
+    migrated = None
+    for r in range(8):
+        for name, (cluster, builder) in worlds.items():
+            for ev in fleet_streams[name][r * per_round:(r + 1) * per_round]:
+                store_step(cluster, builder.store, ev)
+        counted("fleet", lambda: tick_all((p0, p1)))
+        if r == 3:
+            counted("fleet", lambda: surge_parity(
+                p0, {"t1": singles["t1"]}, "surge fleet, t1 before"))
+            t1 = time.perf_counter()
+            migrated = srv.migrate("t1", 1)
+            migrated["seconds"] = time.perf_counter() - t1
+            owner["t1"] = srv.scorer("t1")
+            if owner["t1"] is not p1 or "t1" in p0.tenant_rows(p0.serve()):
+                raise AssertionError("surge migrate: not exactly one owner")
+        if r % 2 == 1:
+            for name, sc in singles.items():
+                counted("fleet", lambda: surge_parity(
+                    owner[name], {name: sc}, f"surge fleet round {r}"))
+    kinds = [rec["kind"] for rec in srv._fleet_journal.replay()]
+    if kinds != ["migrate_intent", "migrate_commit"] or not migrated["moved"]:
+        raise AssertionError(f"surge migrate: WAL {kinds}, {migrated}")
+    fleet = srv.fleet()
+    srv.fault_injector = FaultInjector([Fault("migrate", at=1)])
+    try:
+        srv.migrate("t3", 0)
+        raise AssertionError("surge crash: the migration did not fault")
+    except InjectedFault:
+        pass
+    srv2 = SurgeServer(fleet_cfg, journal_path=wal, device=dev, now_s=now_s)
+    for name, store in stores.items():
+        srv2.register(name, store)
+    fleet2 = srv2.fleet()
+    owners = [p for p, info in fleet2["packs"].items()
+              if "t3" in info["tenants"]]
+    if fleet2["placement"]["t3"] != 0 or owners != ["0"] or \
+            sorted(fleet2["placement"]) != sorted(stores):
+        raise AssertionError(f"surge crash recovery: {fleet2}")
+    counted("fleet", lambda: surge_parity(
+        srv2.scorer("t3"), {"t3": singles["t3"]}, "surge recovered t3"))
+    log(f"surge fleet: migrated t1 0 -> 1 in {migrated['seconds']:.3f} s "
+        f"(WAL {kinds}); crash at the source repack recovered t3 to pack "
+        f"{fleet2['placement']['t3']}, bit-equal; fleet {fleet}")
+
+    # -- elastic: one decision over a fleet pack ----------------------------
+    ec = ElasticController(
+        SimpleNamespace(scorer=p1, _mesh_excluded=()),
+        dataclasses.replace(settings, elastic_enabled=True,
+                            elastic_dwell_s=0.0))
+    decision = ec.observe()
+    entry = p1._scope_entry
+    best = ROOFLINE.best(entry, "1")
+    drift = ROOFLINE.achieved(entry, "1") / best if best else 0.0
+    if ec.ladder() != (1,) or decision["action"] != "hold" or \
+            decision["shards"] != 1 or not 0.0 < drift <= 1.0 or \
+            decision["roofline_drift"] != drift:
+        raise AssertionError(f"surge elastic: {decision}, ladder "
+                             f"{ec.ladder()}, pack 1's drift {drift}")
+    srv.note_scale(1, decision)
+    log(f"surge elastic: {decision}")
+
+    # -- the app: two workers, two tenants, one SurgeServer ------------------
+    app = surge_app(dev, app_pods, app_incidents, seed + 20)
+    log(f"surge app: {app}")
+    launches["app"] = app["rules_fold_launches"]
+    for s in (pack, p0, p1, *singles.values()):
+        s._drop_stale_inflight()
+    return {
+        "tenants": SURGE_TENANTS, "world": {
+            "pods": num_pods, "incidents": num_incidents,
+            "events_per_tenant": events, "per_round": per_round,
+            "rounds": rounds, "serve_every": serve_every},
+        "shape": shape, "world_s": world_s, "pack_build_s": pack_build_s,
+        "pack_tick_s_p50": statistics.median(pack_s[0] + pack_s[1]),
+        "singles_tick_s_p50": statistics.median(singles_s[0] + singles_s[1]),
+        "tick_s_p50_by_order": {
+            "pack_first": {"pack": statistics.median(pack_s[0]),
+                           "singles": statistics.median(singles_s[0])},
+            "singles_first": {"pack": statistics.median(pack_s[1]),
+                              "singles": statistics.median(singles_s[1])}},
+        "checked_serves": serves, "incidents_compared": compared,
+        "rebuilds": {"pack": pack.rebuilds,
+                     "singles": [s.rebuilds for s in singles.values()]},
+        "rules_fold": kernel, "launches": launches,
+        "quarantine": {"victim": victim, "heal_s": heal_s},
+        "migration": migrated, "fleet": fleet,
+        "fleet_recovered": fleet2, "elastic": decision, "app": app,
+        "phase_s": time.perf_counter() - t_phase}
 
 
 def by_incident(out: dict, key: str) -> list:
@@ -4054,6 +4679,13 @@ def main(argv: list[str]) -> int:
     obs = run_observability(dev, snapshot, backend, t3["ms"])
     rules_learned["config4_scope"] = obs["launches"]["rules_fold"]
 
+    # -- 17. multi-tenant packing and the fleet: four config-4 tenants on
+    # one pack, quarantine and heal, a two-pack fleet with a migration and
+    # a crash, two workers on one SurgeServer ----------------------------
+    surge = run_surge(dev)
+    rules_learned.update({f"surge_{k}": n
+                          for k, n in surge["launches"].items()})
+
     kernels = [{
         "name": "rules_fold", "route": "cuda",
         "source": "kubernetes_aiops_evidence_graph_tpu_torch/kernels/rules_fold.cu",
@@ -4080,6 +4712,12 @@ def main(argv: list[str]) -> int:
         "config4": {k: c4_timing[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_bytes", "ms_per_call",
                                              "ms_by_kernel", "timed_by")},
+        "surge_pack_shape": {k: surge["shape"][k]
+                             for k in ("Pn", "Pi", "W", "Wr")},
+        "surge_pack": {k: surge["rules_fold"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
+            "ms_per_call", "ms_by_kernel", "timed_by", "single_t0_ms",
+            "device_passes", "device_passes_ratio")},
     }, {
         "name": "gms", "route": "cuda",
         "source": "kubernetes_aiops_evidence_graph_tpu_torch/kernels/gms.cu",
@@ -4211,6 +4849,13 @@ def main(argv: list[str]) -> int:
         f"forward {obs['forward_config3']['device_ms_per_pass']:.4f} vs "
         f"{obs['forward_config3']['dispatch_ms_per_pass']:.4f} ms; telemetry "
         f"{obs['telemetry_cost']}; phase {obs['phase_s']:.1f} s")
+    log(f"surge ({smi}): pack tick {surge['pack_tick_s_p50'] * 1e3:.3f} ms "
+        f"host against the four singles' {surge['singles_tick_s_p50'] * 1e3:.3f}"
+        f" ms; B1 {surge['rules_fold']['ms']} ms a pack tick (bound "
+        f"{surge['rules_fold']['bound_ms']}), device passes "
+        f"{surge['rules_fold']['device_passes']}; migration "
+        f"{surge['migration']['seconds']:.3f} s; elastic "
+        f"{surge['elastic']['action']}; phase {surge['phase_s']:.1f} s")
     log(f"cli ({smi}): {cli_run['seconds']:.2f} s at {cli_run['pods']} pods, "
         f"graph {cli_run['graph']}, B1 {cli_run['b1_device_ms']} device ms; "
         f"blast: {blast['ms_per_call']:.3f} ms a route call, "
@@ -4340,6 +4985,16 @@ def main(argv: list[str]) -> int:
         "card": smi, **{k: v for k, v in obs.items() if k != "launches"},
         "launches": obs["launches"],
         "learn_counters_phase10": online["learn_counters"]}}))
+    print(json.dumps({"surge": {
+        "card": smi, **{k: surge[k] for k in (
+            "tenants", "world", "shape", "world_s", "pack_build_s",
+            "pack_tick_s_p50", "singles_tick_s_p50", "tick_s_p50_by_order",
+            "checked_serves",
+            "incidents_compared", "rebuilds", "launches", "quarantine",
+            "migration", "fleet", "fleet_recovered", "elastic", "app",
+            "phase_s")},
+        "rules_fold": {k: v for k, v in surge["rules_fold"].items()
+                       if k != "launches"}}}, default=str))
     print(json.dumps({"cli": {"card": smi, **cli_run}}))
     print(json.dumps({"blast": {"card": smi, **blast}}))
     print(json.dumps({"live": {"card": smi, **live}}))

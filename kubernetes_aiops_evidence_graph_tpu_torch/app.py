@@ -63,7 +63,7 @@ class AiopsApp:
         device: Any = None,
     ) -> None:
         self.settings = settings or get_settings()
-        check_ported(self.settings, surge)
+        check_ported(self.settings)
         self.device = resolve_device(device)
         configure(self.settings.log_level)
         self.cluster = cluster
@@ -123,12 +123,13 @@ class AiopsApp:
                                    "persist_spill_cap", 4096)), 1))
         self._spill_lock = threading.Lock()
         self._storm_sample_counter = 0
-        # the shared SurgeServer fleet is ROADMAP item 7 (check_ported);
-        # GET /api/v1/fleet answers "enabled": false
-        self.surge = None
+        # an optional shared SurgeServer fleet: the worker serves off its
+        # tenant's pack, and GET /api/v1/fleet exposes placement, load and
+        # the migration history
+        self.surge = surge
         self.worker = IncidentWorker(cluster, self.db, builder=self.builder,
                                      settings=self.settings, dedup=self.dedup,
-                                     device=self.device)
+                                     surge=surge, device=self.device)
         # graft-evolve (learn/): the online learning loop, attached to the
         # worker's resident GNN scorer once serving resolves it. Built on
         # a background thread at start() — scorer construction tensorizes

@@ -164,6 +164,35 @@ class Settings:
     # bit-identical at every depth.
     serve_pipeline_depth: int = 2
 
+    # --- multi-tenant fleet (rca/surge.py SurgeServer) and the elastic
+    # controller (rca/elastic.py) ---
+    # the ElasticController reads pipeline occupancy / stall seconds, the
+    # admission shed-ratio EWMA and the roofline drift of one pack, and
+    # gates D -> D' scale decisions behind hysteresis + dwell. On one card
+    # the shard ladder is (1,), so it decides and never steps; a step
+    # (shield.scale_mesh) is ROADMAP item 9
+    elastic_enabled: bool = False
+    # both directions must hold for dwell_s before a scale fires
+    elastic_dwell_s: float = 10.0
+    # scale UP when occupancy (inflight/depth) or shed EWMA exceeds these,
+    # or the roofline drift exceeds this fraction; DOWN when all fall low
+    elastic_up_occupancy: float = 0.75
+    elastic_down_occupancy: float = 0.25
+    elastic_up_shed: float = 0.05
+    elastic_down_shed: float = 0.005
+    elastic_up_roofline: float = 0.85
+    elastic_down_roofline: float = 0.30
+    # cooldown between consecutive scale events (seconds)
+    elastic_cooldown_s: float = 30.0
+    # fleet bin-packing: max tenants per MultiTenantScorer pack and max
+    # packs (1 = every tenant on pack 0)
+    swell_pack_tenants: int = 4
+    swell_max_packs: int = 1
+    # per-tenant admitted-rows/s load estimate smoothing
+    swell_load_alpha: float = 0.2
+    # fleet-WAL path for placement/migration records; empty = in memory
+    swell_journal_path: str = ""
+
     # --- learned RCA (rca/gnn_backend.py, rca/gnn_streaming.py) ---
     # a .npz checkpoint (flat keys, see rca/gnn.flat_params); "" = the one
     # shipped in the package (checkpoints/gnn.npz)

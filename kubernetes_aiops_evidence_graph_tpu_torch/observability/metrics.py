@@ -7,6 +7,8 @@ prometheus_client dependency.
 """
 from __future__ import annotations
 
+import bisect
+import itertools
 import threading
 from collections import defaultdict
 from typing import Iterable
@@ -50,8 +52,13 @@ class Gauge(Counter):
         self._values = defaultdict(float)
 
     def set(self, value: float, **labels) -> None:
+        self.set_key(value, tuple(sorted(labels.items())))
+
+    def set_key(self, value: float, key: tuple) -> None:
+        """Fast path for hot callers that pre-build the sorted label
+        tuple: ``key`` must be ``tuple(sorted(labels.items()))``."""
         with self._lock:
-            self._values[tuple(sorted(labels.items()))] = value
+            self._values[key] = value
 
     def expose(self) -> Iterable[str]:
         yield f"# HELP {self.name} {self.help}"
@@ -66,6 +73,9 @@ class Histogram(_Metric):
     def __init__(self, name: str, help_: str = "", buckets=_DEFAULT_BUCKETS):
         super().__init__(name, help_, "histogram")
         self.buckets = tuple(buckets)
+        # per-bucket (not cumulative) counts: an observation lands in ONE
+        # bucket, the first whose bound it does not exceed (none past the
+        # last bound); the exposition and percentiles accumulate them
         self._counts: dict[tuple, list[int]] = {}
         self._sums: dict[tuple, float] = defaultdict(float)
         self._totals: dict[tuple, int] = defaultdict(int)
@@ -77,13 +87,24 @@ class Histogram(_Metric):
         """Fast path for hot callers (graft-scope per-tick stages) that
         pre-build the sorted label-tuple once instead of per observation.
         ``key`` must be ``tuple(sorted(labels.items()))``."""
+        self.observe_keys(((value, key),))
+
+    def observe_keys(self, samples) -> None:
+        """``observe_key`` for each ``(value, key)`` of ``samples``, under
+        one acquisition of the lock."""
+        buckets = self.buckets
+        top = buckets[-1] if buckets else float("-inf")
+        find = bisect.bisect_left
+        all_counts, sums, totals = self._counts, self._sums, self._totals
         with self._lock:
-            counts = self._counts.setdefault(key, [0] * len(self.buckets))
-            for i, b in enumerate(self.buckets):
-                if value <= b:
-                    counts[i] += 1
-            self._sums[key] += value
-            self._totals[key] += 1
+            for value, key in samples:
+                counts = all_counts.get(key)
+                if counts is None:
+                    counts = all_counts[key] = [0] * len(buckets)
+                if value <= top:
+                    counts[find(buckets, value)] += 1
+                sums[key] += value
+                totals[key] += 1
 
     def time(self, **labels):
         import time as _t
@@ -112,7 +133,7 @@ class Histogram(_Metric):
         if not total:
             return 0.0
         target = q * total
-        counts = self._counts.get(key, [])
+        counts = list(itertools.accumulate(self._counts.get(key, [])))
         prev_cum = 0
         for i, c in enumerate(counts):
             if c >= target:
@@ -130,7 +151,8 @@ class Histogram(_Metric):
         yield f"# TYPE {self.name} histogram"
         with self._lock:
             snapshot = [
-                (key, list(self._counts.get(key, [0] * len(self.buckets))),
+                (key, list(itertools.accumulate(
+                    self._counts.get(key, [0] * len(self.buckets)))),
                  self._sums[key], self._totals[key])
                 for key in sorted(self._totals)
             ]

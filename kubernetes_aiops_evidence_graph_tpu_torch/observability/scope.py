@@ -38,9 +38,10 @@ per-tick trace context through the entire hot path, with three pillars:
 
 The resident scorers (``rca/streaming.py``, ``rca/gnn_streaming.py``)
 stamp their ticks' stages and feed the roofline; the ingestion edge and
-the workflow feed ``SCOPE``, spans and the flight ring. What waits for
-later ROADMAP items: the ``pack`` dimension beyond ``"0"`` (item 7), the
-sharded entry points and ``SHARD_DELTA_ROWS`` routing (item 9).
+the workflow feed ``SCOPE``, spans and the flight ring; each pack of a
+``rca/surge.SurgeServer`` fleet stamps its own ``pack`` label. What waits
+for multi-device serving (ROADMAP item 9): the sharded entry points and
+``SHARD_DELTA_ROWS`` routing.
 
 Hard constraints this module keeps: all timestamps are host-side
 monotonic reads (the epoch anchor for OTLP export is taken ONCE from
@@ -72,6 +73,7 @@ log = get_logger("scope")
 # mid-serve can never produce a negative stage span
 _ANCHOR_EPOCH_S = utcnow().timestamp()
 _ANCHOR_MONO = time.monotonic()
+_monotonic = time.monotonic     # bound once: read at every stage mark
 
 
 def _epoch_of(mono: float) -> float:
@@ -158,7 +160,7 @@ class TickSpan:
         self.pack = "0"
 
     def mark(self, stage: str) -> None:
-        self.marks.append((stage, time.monotonic()))
+        self.marks.append((stage, _monotonic()))
 
     def flag(self, name: str) -> None:
         if name not in self.flags:
@@ -326,6 +328,9 @@ STORM_FLAG = {"active": False}
 # -- sharded routing visibility (parallel/sharded_streaming.py hook) --------
 
 _route_tls = threading.local()
+# set once any delta router has noted a route: until then (one card) a
+# tick's retirement skips the thread-local read
+_ROUTED = False
 
 SHARD_DELTA_ROWS = m.REGISTRY.gauge(
     "aiops_serve_shard_delta_rows",
@@ -339,7 +344,9 @@ def note_route(shard_rows: Iterable[int]) -> None:
     counts of the batch it just routed: sets the imbalance gauge and
     stashes the counts (thread-local — routing and dispatch happen on the
     same serving thread) for the next tick's flight record."""
+    global _ROUTED
     rows = tuple(int(r) for r in shard_rows)
+    _ROUTED = True
     _route_tls.last = rows
     for g, r in enumerate(rows):
         SHARD_DELTA_ROWS.set(float(r), shard=str(g))
@@ -367,6 +374,11 @@ class _Roofline:
         self._best: dict[tuple[str, str], float] = {}
         self._ewma: dict[tuple[str, str], float] = {}
         self._gauged: set[tuple[str, str]] = set()
+        # (entrypoint, key, pack) already priced AND gauged: the per-tick
+        # fast path is one set lookup
+        self._steady: set[tuple] = set()
+        # each series' gauge label key, built once
+        self._labels: dict[tuple[str, str], tuple] = {}
 
     def model(self, entrypoint: str, key: tuple, shapes,
               pack: str = "0") -> None:
@@ -374,15 +386,16 @@ class _Roofline:
         ``tick_cost``'s keyword arguments, called only for a new key) the
         first time ``key`` is seen, and set this pack's modeled gauges
         once per (entrypoint, pack)."""
-        k = (entrypoint, key)
-        if k in self._costs and (entrypoint, pack) in self._gauged:
+        if (entrypoint, key, pack) in self._steady:
             return      # steady state (entries are never removed)
+        k = (entrypoint, key)
         with self._lock:
             rec = self._costs.get(k)
             if rec is not None:
                 # cost cache hit (shape-keyed, pack-independent): only
                 # THIS pack's modeled gauges may still be missing
                 if (entrypoint, pack) in self._gauged:
+                    self._steady.add((entrypoint, key, pack))
                     return
                 self._gauged.add((entrypoint, pack))
         if rec is None:
@@ -394,6 +407,8 @@ class _Roofline:
             float(rec["hbm_bytes"]), entrypoint=entrypoint, pack=pack)
         m.ROOFLINE_HALO_BYTES.set(
             float(rec["collective_bytes"]), entrypoint=entrypoint, pack=pack)
+        with self._lock:
+            self._steady.add((entrypoint, key, pack))
 
     @staticmethod
     def _price(entrypoint: str, shapes: dict) -> dict:
@@ -441,9 +456,12 @@ class _Roofline:
             self._ewma[series] = ewma
             best = max(self._best.get(series, 0.0), ewma)
             self._best[series] = best
-        m.ROOFLINE_ACHIEVED_BPS.set(ewma, entrypoint=entrypoint, pack=pack)
-        m.ROOFLINE_DRIFT.set(ewma / best if best else 0.0,
-                             entrypoint=entrypoint, pack=pack)
+            labels = self._labels.get(series)
+            if labels is None:
+                labels = self._labels[series] = tuple(sorted(
+                    {"entrypoint": entrypoint, "pack": pack}.items()))
+        m.ROOFLINE_ACHIEVED_BPS.set_key(ewma, labels)
+        m.ROOFLINE_DRIFT.set_key(ewma / best if best else 0.0, labels)
 
     def achieved(self, entrypoint: str, pack: str = "0") -> float:
         """EWMA achieved-bytes/s for one (entrypoint, pack) series (0.0
@@ -504,9 +522,8 @@ class TickScope:
             return None
         self._serial += 1
         qw, self._pending_queue_wait = self._pending_queue_wait, 0.0
-        span = TickSpan(self._serial, self.backend,
-                        int(getattr(scorer, "pipeline_depth", 1)),
-                        str(getattr(scorer, "_scope_tier", "steady")), qw)
+        span = TickSpan(self._serial, self.backend, scorer.pipeline_depth,
+                        scorer._scope_tier, qw)
         span.pack = self.pack
         if STORM_FLAG["active"]:
             span.flag("storm")
@@ -541,13 +558,14 @@ class TickScope:
         if span is None:
             return
         span.fetched = fetched
-        if not span.shard_rows:
+        if _ROUTED and not span.shard_rows:
             span.shard_rows = take_route()
         FLIGHT_RECORDER.record(span)
         if not fetched:
             return
-        for stage, dur in span.splits().items():
-            m.TICK_STAGE_SECONDS.observe_key(dur, self._stage_key(stage))
+        m.TICK_STAGE_SECONDS.observe_keys(
+            [(dur, self._stage_key(stage))
+             for stage, dur in span.splits().items()])
         parent = TRACER._current()
         if parent is not None:
             self._emit_trace(span, parent)

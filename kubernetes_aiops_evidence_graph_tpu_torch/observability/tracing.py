@@ -61,7 +61,9 @@ class Tracer:
         self.on_end = None
 
     def _current(self) -> Optional[Span]:
-        stack = getattr(self._tls, "stack", None)
+        # the thread's own attribute dict: a missing attribute read through
+        # getattr costs an exception on every tick of an untraced thread
+        stack = self._tls.__dict__.get("stack")
         return stack[-1] if stack else None
 
     @contextlib.contextmanager

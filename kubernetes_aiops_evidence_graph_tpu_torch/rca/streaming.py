@@ -115,6 +115,21 @@ def _delta_pack(slab: torch.Tensor, li: int, pk: int, dim: int, gi: int = 0
     return ints, rows, extra
 
 
+def _compact_delta(s_idx: np.ndarray, s_rows: np.ndarray,
+                   idx_out: np.ndarray, rows_out: np.ndarray,
+                   sentinel: int) -> int:
+    """Write a screened feature delta back into the staged slab's views as
+    a live prefix (its in-range rows, in order) followed by sentinel
+    indices and zero rows. Returns the live count."""
+    live = s_idx < sentinel
+    m = int(live.sum())
+    idx_out[:m] = s_idx[live]
+    idx_out[m:] = sentinel
+    rows_out[:m] = s_rows[live]
+    rows_out[m:] = 0.0
+    return m
+
+
 class FeatureStage:
     """Columnar pending-feature staging: preallocated ``[cap]`` int32 node
     rows + ``[cap, DIM]`` float32 feature rows, plus a row→slot map for
@@ -161,6 +176,23 @@ class FeatureStage:
         mirror) at their node rows: the host mirror of a staged row is
         its staged value."""
         table[self._idx[:self._n]] = self._rows[:self._n]
+
+    def discard_range(self, lo: int, hi: int) -> int:
+        """Drop every staged row in ``[lo, hi)`` (a quarantined or
+        released tenant's region, ``rca/surge.py``) with one vectorized
+        compaction; the surviving rows keep their relative order. Returns
+        the rows dropped."""
+        k = self._n
+        idx = self._idx[:k]
+        keep = (idx < lo) | (idx >= hi)
+        m = int(keep.sum())
+        if m == k:
+            return 0
+        self._idx[:m] = idx[keep]
+        self._rows[:m] = self._rows[:k][keep]
+        self._n = m
+        self._slots = {int(r): j for j, r in enumerate(self._idx[:m])}
+        return k - m
 
     def drain_into(self, idx_out: np.ndarray, rows_out: np.ndarray,
                    sentinel: int) -> int:
@@ -223,7 +255,7 @@ class _Tick(NamedTuple):
 class StreamingScorer:
     """Device-resident scorer with incremental structural + feature deltas."""
 
-    def __init__(self, store: EvidenceGraphStore,
+    def __init__(self, store: "EvidenceGraphStore | None",
                  settings: Settings | None = None,
                  now_s: float | None = None,
                  device: "str | torch.device | None" = None) -> None:
@@ -302,7 +334,7 @@ class StreamingScorer:
         self._scope_coalesced_since = 0
         self._scope_key: tuple = ()
         self._scope_entry = "streaming.rules_tick"
-        # the owning serving pack's id (one pack until ROADMAP item 7)
+        # the owning serving pack's id (``SurgeServer`` stamps its packs)
         self._scope_pack = "0"
         self._init_from_store()
 
@@ -428,6 +460,58 @@ class StreamingScorer:
         self._ev_idx_dev = self._upload(ev_idx)
         self._ev_cnt_dev = self._upload(ev_cnt)
         self._pair_dev = self._upload(ev_pair)
+
+    # -- slot-space seams ---------------------------------------------------
+    #
+    # The multi-tenant pack (rca/surge.py) carves the node and incident
+    # slot spaces into per-tenant regions: allocation must stay inside the
+    # id's region and store lookups must resolve through the id's tenant
+    # store. The base scorer serves ONE store, so these default to the
+    # single free lists and the single store.
+
+    def _node_row_available(self, node_id: str) -> bool:
+        return bool(self._free_node_rows)
+
+    def _take_node_row(self, node_id: str) -> int:
+        return self._free_node_rows.pop()
+
+    def _put_node_row(self, row: int) -> None:
+        self._free_node_rows.append(row)
+
+    def _inc_row_available(self, node_id: str) -> bool:
+        return bool(self._free_inc_rows)
+
+    def _take_inc_row(self, node_id: str) -> int:
+        return self._free_inc_rows.pop()
+
+    def _put_inc_row(self, row: int) -> None:
+        self._free_inc_rows.append(row)
+
+    def _store_node(self, node_id: str):
+        """The live store node behind a (possibly tenant-namespaced) id."""
+        return self.store._nodes.get(node_id)
+
+    def _canon_incident_id(self, incident_node_id: str) -> str:
+        """Canonical incident node id: bare uuids gain the ``incident:``
+        prefix. The multi-tenant pack overrides this: its journal-driven
+        ids arrive canonical and namespaced already."""
+        return (incident_node_id if incident_node_id.startswith("incident:")
+                else f"incident:{incident_node_id}")
+
+    def _tenant_count(self) -> int:
+        """Tenants packed onto this resident state (1 for the base
+        scorer); labels the per-pass incident-batch histogram."""
+        return 1
+
+    def serving_node_id(self, node_id: str, tenant: str = "default") -> str:
+        """Translate a store-local node id into this scorer's slot-space
+        id (the multi-tenant pack namespaces it per tenant)."""
+        return node_id
+
+    def _graph_size(self) -> int:
+        """Graph shards the resident state is split over: 1 on one card
+        (the graph-sharded mesh is ROADMAP item 9)."""
+        return 1
 
     def _set_pod_node(self, pod: int, node: int) -> None:
         """Point `pod` at `node`, keeping the reverse index coherent."""
@@ -588,11 +672,11 @@ class StreamingScorer:
         pending in one sync batch)."""
         if node_id in self._id_to_idx:
             return self._id_to_idx[node_id]
-        if not self._free_node_rows:
+        if not self._node_row_available(node_id):
             self._rebuild()
             return self._id_to_idx.get(node_id, -1)
-        row = self._free_node_rows.pop()
-        node = self.store._nodes.get(node_id)
+        row = self._take_node_row(node_id)
+        node = self._store_node(node_id)
         self._node_ids[row] = node_id
         self._id_to_idx[node_id] = row
         self.snapshot.node_mask[row] = 1.0
@@ -630,7 +714,7 @@ class StreamingScorer:
             for r in affected:
                 self._recompact_pairs(r)
         self._node_ids[row] = None
-        self._free_node_rows.append(row)
+        self._put_node_row(row)
         self.snapshot.node_mask[row] = 0.0
         self.snapshot.features[row] = 0.0
         self._pending_feat[row] = np.zeros(
@@ -647,7 +731,7 @@ class StreamingScorer:
         if incident_node_id in self._inc_row_of:
             r = self._inc_row_of[incident_node_id]
         else:
-            if not self._free_inc_rows:
+            if not self._inc_row_available(incident_node_id):
                 self._rebuild()
                 return self._inc_row_of.get(incident_node_id, -1)
             rb = self.rebuilds
@@ -656,7 +740,7 @@ class StreamingScorer:
                 # node-row exhaustion rebuilt from the (already upserted)
                 # store, which registered the incident
                 return self._inc_row_of.get(incident_node_id, -1)
-            r = self._free_inc_rows.pop()
+            r = self._take_inc_row(incident_node_id)
             self._inc_row_of[incident_node_id] = r
             self._row_inc[r] = incident_node_id
             self.snapshot.incident_nodes[r] = nrow
@@ -667,8 +751,7 @@ class StreamingScorer:
 
     def close_incident(self, incident_node_id: str) -> bool:
         """Incident closure: clear the row's evidence and free it."""
-        nid = (incident_node_id if incident_node_id.startswith("incident:")
-               else f"incident:{incident_node_id}")
+        nid = self._canon_incident_id(incident_node_id)
         r = self._inc_row_of.pop(nid, None)
         if r is None:
             return False
@@ -680,7 +763,7 @@ class StreamingScorer:
         self._row_pairs[r] = []
         self._pair_map[r] = {}
         self._row_inc[r] = None
-        self._free_inc_rows.append(r)
+        self._put_inc_row(r)
         self.snapshot.incident_mask[r] = 0.0
         self._dirty_rows.add(r)
         self.remove_entity(nid)
@@ -852,7 +935,7 @@ class StreamingScorer:
         n = 0
         for nid in node_ids:
             idx = self._id_to_idx.get(nid)
-            node = self.store._nodes.get(nid)
+            node = self._store_node(nid)
             if idx is None or node is None:
                 continue
             row = extract_node_features(node, now_s=self.now_s)
@@ -955,7 +1038,13 @@ class StreamingScorer:
         poisoned = self._fault_value("delta_values", f_rows)
         if poisoned is not f_rows:
             f_rows[...] = poisoned
-        self._screen_delta(f_rows, span)
+        f_idx = slab.view[:pk]
+        s_idx, s_rows = self._screen_delta(f_idx, f_rows, span)
+        if s_idx is not f_idx:
+            # the screen dropped rows (index set to the out-of-range
+            # sentinel): the tick copies a live prefix, so compact it
+            f_live = _compact_delta(s_idx, s_rows, f_idx, f_rows,
+                                    self.snapshot.padded_nodes)
         self._fault_point("dispatch")
         self._fault_point("pack")
         dim = self.snapshot.features.shape[1]
@@ -989,19 +1078,26 @@ class StreamingScorer:
         self._fault_point("shard_loss")
         self.dispatches += 1
         # every device pass scores EVERY live incident on the resident
-        # state (labeled by how many tenants share it: one until item 7)
+        # state (labeled by how many tenants share it)
         batch = len(self._inc_row_of)
-        obs_metrics.SERVE_BATCH_INCIDENTS.observe(float(batch), tenants="1")
+        obs_metrics.SERVE_BATCH_INCIDENTS.observe(
+            float(batch), tenants=str(self._tenant_count()))
         if span is not None:
             span.batch_incidents = batch
-            span.tenants = 1
+            span.tenants = self._tenant_count()
             span.mark("dispatch")
         return out
 
-    def _screen_delta(self, f_rows: np.ndarray, span) -> None:
+    def _screen_delta(self, f_idx: np.ndarray, f_rows: np.ndarray,
+                      span) -> tuple[np.ndarray, np.ndarray]:
         """Finite guard over the staged feature rows (the padded delta:
         its padding rows are zeros), after the pending deltas were drained
-        and before they reach the resident state."""
+        and before they reach the resident state. The base scorer raises
+        :class:`NonFiniteDelta` (the shield quarantines the batch and
+        replays); the multi-tenant pack overrides this to drop only the
+        poisoned tenants' rows, so the other tenants' tick proceeds
+        (rca/surge.py). Returns ``(f_idx, f_rows)``, the same arrays when
+        nothing was dropped."""
         if self.finite_delta_guard and not np.isfinite(f_rows).all():
             if span is not None:
                 span.flag("nonfinite_delta")
@@ -1010,6 +1106,7 @@ class StreamingScorer:
             raise NonFiniteDelta(
                 f"{int((~np.isfinite(f_rows)).any(axis=-1).sum())} "
                 "non-finite staged feature rows")
+        return f_idx, f_rows
 
     # -- crash-shield seams (fault injection + snapshot/restore) -----------
 
@@ -1253,11 +1350,6 @@ class StreamingScorer:
     def _journal_backlog(self) -> int:
         """Store-journal records not yet drained into the resident state."""
         return max(int(self.store.journal_seq) - int(self._synced_seq), 0)
-
-    def serving_node_id(self, node_id: str, tenant: str = "default") -> str:
-        """A store-local node id in this scorer's slot space (the same id:
-        the multi-tenant pack that namespaces it is ROADMAP item 7)."""
-        return node_id
 
     def _supersede_inflight(self) -> None:
         """A fresh caller-boundary tick makes every queued result stale:

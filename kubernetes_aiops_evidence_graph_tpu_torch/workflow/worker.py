@@ -14,10 +14,11 @@ re-executing completed steps.
 The port's copy serves from the port's scorers on the worker's device
 (``device=None`` is the CUDA device and raises without one; the tests
 pass ``"cpu"``), wrapped in the crash shield (``rca/shield.py``) when
-``shield_enabled``. It starts no warm thread: a hand kernel compiles
-once, so the JAX package's warm paths have no counterpart. Settings whose
-backing module is not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item (``check_ported``).
+``shield_enabled``, or from a tenant's pack of a shared multi-tenant
+``rca/surge.SurgeServer`` (rules backend only). It starts no warm thread:
+a hand kernel compiles once, so the JAX package's warm paths have no
+counterpart. Settings whose backing module is not ported yet raise
+``NotImplementedError`` naming their ROADMAP item (``check_ported``).
 """
 from __future__ import annotations
 
@@ -55,14 +56,10 @@ def _incident_from_row(row: dict) -> Incident:
     ))
 
 
-def check_ported(settings: Settings, surge: Any = None) -> None:
+def check_ported(settings: Settings) -> None:
     """Raise ``NotImplementedError`` for a setting whose backing module
     the port does not have yet, naming its ROADMAP item; nothing falls
     back silently. All of these are off by default."""
-    if surge is not None:
-        raise NotImplementedError(
-            "a multi-tenant surge fleet (rca/surge.py SurgeServer) is not "
-            "ported yet: ROADMAP item 7")
     if int(settings.mesh_dp) > 1 or int(settings.serve_graph_shards) > 1:
         raise NotImplementedError(
             f"mesh_dp={settings.mesh_dp}, serve_graph_shards="
@@ -87,7 +84,7 @@ class IncidentWorker:
         self.db = db
         self.builder = builder or GraphBuilder()
         self.settings = settings or get_settings()
-        check_ported(self.settings, surge)
+        check_ported(self.settings)
         self.device = resolve_device(device)
         self.dedup = dedup
         self.concurrency = concurrency
@@ -100,7 +97,21 @@ class IncidentWorker:
         # store via its change journal — no per-incident snapshot rebuild
         self.scorer: Any = None
         self._scorer_lock = threading.Lock()
+        # attach this worker's store to a shared multi-tenant SurgeServer
+        # (rca/surge.py): N per-tenant workers then serve off ONE resident
+        # pack and their concurrent incidents score in one device pass.
+        # Registration is cheap; the pack builds lazily at first serve.
+        # ``tenant`` labels this worker's region
+        if surge is not None and self.settings.rca_backend != "tpu":
+            # the pack batches the rules scorer's verdict pass; other
+            # backends keep their per-tenant resident scorer
+            log.warning("surge_requires_tpu_backend",
+                        rca_backend=self.settings.rca_backend)
+            surge = None
+        self.surge = surge
         self.tenant = tenant
+        if surge is not None:
+            surge.register(tenant, self.builder.store)
         # once the scorer question is settled (a resident scorer exists,
         # or the backend has none), steady-state incidents skip the
         # executor hop entirely — `scorer_resolutions` counts the slow
@@ -120,6 +131,18 @@ class IncidentWorker:
         ``shield_enabled``."""
         if self.settings.rca_backend not in ("tpu", "gnn"):
             return None
+        if self.surge is not None:
+            # the shared multi-tenant pack IS this worker's resident
+            # scorer; scorer() (re)builds under the server's own lock when
+            # tenants registered since the last build. The shield wraps
+            # one store and stays off the pack (each tenant's
+            # quarantine/heal ladder covers poison)
+            if self.settings.shield_enabled:
+                log.warning("surge_shield_unsupported", tenant=self.tenant)
+            scorer = self.surge.scorer(self.tenant)
+            with self._scorer_lock:
+                self.scorer = scorer
+            return scorer
         with self._scorer_lock:
             if self.scorer is None:
                 if self.settings.rca_backend == "gnn":
@@ -184,8 +207,12 @@ class IncidentWorker:
                 # one-time cold start never freezes the event loop. Once
                 # resolved (warm scorer, or a backend with none), the
                 # fast path reuses the cached reference: steady-state
-                # incidents pay zero thread round-trips here
-                if self._scorer_resolved:
+                # incidents pay zero thread round-trips here. A surge
+                # fleet whose tenant set changed since its packs were
+                # built (``fresh()`` False) resolves again: the repacked
+                # pack supersedes the cached one
+                if self._scorer_resolved and (
+                        self.surge is None or self.surge.fresh()):
                     scorer = self.scorer
                 else:
                     self.scorer_resolutions += 1

@@ -37,6 +37,8 @@ def test_every_port_module_imports_without_jax_orbax_pydantic_yaml():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "assert {'kubernetes_aiops_evidence_graph_tpu_torch.rca.surge',\n"
+        "        'kubernetes_aiops_evidence_graph_tpu_torch.rca.elastic'} <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [k for k in sys.modules if k == {JAX_PKG!r} or k.startswith({JAX_PKG + '.'!r})]\n"
         "assert not bad, bad\n"

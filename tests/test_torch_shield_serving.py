@@ -5,8 +5,9 @@ With ``shield_enabled`` the workflow worker acquires its resident scorer
 shield-wrapped on the worker's device and anchors a snapshot in
 ``shield_dir`` (a second worker over the same store and directory, a
 restarted serve loop, recovers from it); ``AiopsApp`` serves its
-incidents through it and closes it on ``stop()``. A shielded surge fleet
-still raises, naming its ROADMAP item.
+incidents through it and closes it on ``stop()``. A shielded surge
+worker serves from its tenant's pack, unshielded (the shield wraps one
+store), as the reference does.
 """
 from __future__ import annotations
 
@@ -95,16 +96,25 @@ def test_chip_smoke_app_phase_serves_through_the_shield(backend, tmp_path):
 
 
 def test_a_shielded_surge_fleet_still_waits_for_item_7():
+    """Item 7 landed: with ``shield_enabled`` a surge worker serves from
+    its tenant's pack, which the shield does not wrap (it needs one
+    store), and the app keeps the surge it was given."""
     from kubernetes_aiops_evidence_graph_tpu_torch.app import AiopsApp
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.surge import (
+        MultiTenantScorer, SurgeServer)
     cfg = W.settings(shield_enabled=True)
     cluster, builder, _ = W._world(W.PORT_PKG, cfg, num_pods=60)
     db = Database(":memory:")
+    srv = SurgeServer(cfg, device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            IncidentWorker(cluster, db, builder=builder, settings=cfg,
-                           surge=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 7"):
-            AiopsApp(cluster, cfg, db=db, surge=object(), device="cpu")
+        worker = IncidentWorker(cluster, db, builder=builder, settings=cfg,
+                                surge=srv, tenant="t", device="cpu")
+        scorer = worker.serving_scorer()
+        assert type(scorer) is MultiTenantScorer
+        assert scorer is srv.scorer("t")
+        app = AiopsApp(cluster, cfg, db=db, surge=srv, device="cpu")
+        assert app.surge is srv and app.worker.surge is srv
+        assert srv.fleet()["placement"] == {"t": 0, "default": 0}
     finally:
         db.close()
 

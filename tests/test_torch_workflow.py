@@ -241,8 +241,21 @@ def test_worker_serving_scorer_is_the_ports(backend, cls):
 def test_unported_settings_raise_and_name_their_item(override, item):
     db = t_storage.Database(":memory:")
     _DBS.append(db)
-    kw, surge = ({}, object()) if override == "surge" else (override, None)
-    settings = T.settings(**kw)
+    if override == "surge":
+        # item 7 landed: a surge fleet is taken, not refused
+        from kubernetes_aiops_evidence_graph_tpu_torch.rca.surge import (
+            SurgeServer)
+        srv = SurgeServer(T.settings(), device="cpu")
+        worker = t_workflow.IncidentWorker(_cluster(), db,
+                                           settings=T.settings(), surge=srv,
+                                           tenant="w", device="cpu")
+        app = t_app.AiopsApp(_cluster(), T.settings(), db=db, surge=srv,
+                             device="cpu")
+        assert worker.surge is srv and app.surge is srv
+        assert sorted(srv.fleet()["placement"]) == ["default", "w"]
+        return
+    settings = T.settings(**override)
+    surge = None
     with pytest.raises(NotImplementedError, match=item):
         t_workflow.IncidentWorker(_cluster(), db, settings=settings,
                                   surge=surge, device="cpu")
