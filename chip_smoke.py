@@ -221,7 +221,27 @@ the learned model's training, offline (``rca/train.py``) and online
    beside the four singles', each arm first on every other round, B1's device
    ms a pack tick and bound, launches and device passes, migration
    seconds, the elastic decision);
-18. prints a ``{"gms_compare": {...}}`` line (the message pass split by
+18. the native host library (``run_native``, ROADMAP item 11), built
+   with g++ beside the kernels: ``LogsCollector._scan`` over the log lines
+   of every service of the config-4 world equal field for field to the
+   Python regex loop (``collectors/logs.scan_python``), and the store's
+   subgraph BFS at depths 1 and 3 from 20 incidents of the config-3 store
+   (58,542 nodes) equal to the Python BFS; each native entry called on
+   the path; a ``{"native": {...}}`` line with each path's seconds beside
+   the Python path's;
+19. rules serving on meshes (``run_mesh``, ROADMAP item 9a), every
+   position on the card: config-3 snapshot scoring at dp 2 and 4 and at
+   (dp, graph) (1, 4) and (2, 2), bit-equal to one ``rules_fold`` pass;
+   B1's split (``rules_fold_partial`` on each of four node blocks,
+   ``rules_tail`` on their sum) against its plain versions and against
+   one ``rules_fold`` launch at config 3 and on config 4's resident
+   state, bit for bit, and timed beside its bounds; the config-4 churn
+   (2,000 events in ticks of 100, depth 2) through a single scorer and
+   scorers on (1 x 2) and (1 x 4) serving meshes (``strict=True``), every
+   ``rescore()`` bit-equal, each entry's launches counted against the
+   passes; four config-4 tenants on a pack over a (1 x 2) mesh bit-equal
+   to their single scorers; a ``{"mesh": {...}}`` line;
+20. prints a ``{"gms_compare": {...}}`` line (the message pass split by
    kernel at config 3, forward and dh, and config 4; the hub probe; the
    learned forward, the train step, the ticks per tier, each split by
    kernel, and learned events/s; ``grad_w`` per launch at the trainer's
@@ -236,7 +256,8 @@ the learned model's training, offline (``rca/train.py``) and online
    its inputs' digest;
    ``--state-dir`` keeps those inputs too), one ``{"kernels": [...]}`` line with
    each kernel's launches on the main paths, its time, the plain
-   version's time and its bound, then the nvidia-smi line, then
+   version's time and its bound (B1's two split entries as entries of
+   their own), then the nvidia-smi line, then
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises and the script exits non-zero. A kernel's ``ms``
@@ -414,8 +435,10 @@ def fold_edge_rows(seed: int, pn: int, pi: int, width: int, pair_width: int,
             to((features, plain_idx, plain_cnt, plain_pair, chain)))
 
 
-def build_world(num_pods: int, num_incidents: int, seed: int = 0):
-    """The config-3 world of the JAX package's benchmark, through the port."""
+def build_world(num_pods: int, num_incidents: int, seed: int = 0,
+                store_out: "list | None" = None):
+    """The config-3 world of the JAX package's benchmark, through the port
+    (its store appended to ``store_out`` when given)."""
     from kubernetes_aiops_evidence_graph_tpu_torch.collectors import (
         collect_all, default_collectors)
     from kubernetes_aiops_evidence_graph_tpu_torch.config import load_settings
@@ -448,6 +471,8 @@ def build_world(num_pods: int, num_incidents: int, seed: int = 0):
                             for r in results for ev in r.evidence]
     snapshot = build_snapshot(builder.store, settings,
                               now_s=cluster.now.timestamp())
+    if store_out is not None:
+        store_out.append(builder.store)
     return incidents, evidence, snapshot
 
 
@@ -630,12 +655,12 @@ def kept_counts():
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms, grad_w
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
     saved = (gms.launches, rf.launches, fk.launches, fk.dma_launches,
-             grad_w.launches)
+             grad_w.launches, rf.partial_launches, rf.tail_launches)
     try:
         yield
     finally:
         (gms.launches, rf.launches, fk.launches, fk.dma_launches,
-         grad_w.launches) = saved
+         grad_w.launches, rf.partial_launches, rf.tail_launches) = saved
 
 
 def reset_counts() -> None:
@@ -644,7 +669,7 @@ def reset_counts() -> None:
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import gms, grad_w
     from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
     gms.launches = rf.launches = fk.launches = fk.dma_launches = 0
-    grad_w.launches = 0
+    grad_w.launches = rf.partial_launches = rf.tail_launches = 0
 
 
 def read_counts() -> dict:
@@ -4446,6 +4471,386 @@ def run_surge(dev, num_pods: int = 10_000, num_incidents: int = 100,
         "phase_s": time.perf_counter() - t_phase}
 
 
+# -- phase 18: the native host kernels (ROADMAP item 11) --------------------
+
+NATIVE_INCIDENTS = 20
+"""Incidents of the config-3 store whose subgraphs phase 18 walks."""
+
+
+def native_counts() -> dict:
+    from kubernetes_aiops_evidence_graph_tpu_torch import native
+    return dict(native.calls)
+
+
+def run_native(store3, incident_ids3: list, num_pods: int = 10_000,
+               num_incidents: int = 100, seed: int = 0) -> dict:
+    """Phase 18 (ROADMAP item 11): the native host library on its two
+    seams. ``LogsCollector._scan`` (``scan_logs``) over the log lines of
+    every service of the config-4 world, equal field for field to the
+    Python regex loop (``collectors/logs.scan_python``); the store's
+    subgraph (``khop_reach`` over the version-cached undirected COO) at
+    depths 1 and 3 from ``NATIVE_INCIDENTS`` incidents of the config-3
+    store (58,542 nodes, above ``_NATIVE_BFS_MIN_NODES``), equal to the
+    Python BFS. Both native entries must be called on the path; the
+    seconds of each path beside the Python path's."""
+    from kubernetes_aiops_evidence_graph_tpu_torch import native
+    from kubernetes_aiops_evidence_graph_tpu_torch.collectors.logs import (
+        LogsCollector, scan_python)
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph.store import (
+        EvidenceGraphStore)
+    t_phase = time.perf_counter()
+    settings, cluster, _builder, _ = streaming_world(num_pods, num_incidents,
+                                                     seed)
+    collector = LogsCollector(cluster, settings)
+    services = [key.split("/", 1) for key in sorted(cluster.services)]
+    logs = [cluster.query_logs(ns, name, limit=settings.max_log_lines)
+            for ns, name in services]
+    logs = [lines for lines in logs if lines]
+    before = native_counts()
+    t0 = time.perf_counter()
+    got = [collector._scan(lines) for lines in logs]
+    scan_native_s = time.perf_counter() - t0
+    scan_calls = native_counts()["scan_logs"] - before["scan_logs"]
+    t0 = time.perf_counter()
+    want = [scan_python(lines) for lines in logs]
+    scan_python_s = time.perf_counter() - t0
+    for (ns, name), a, b in zip(services, got, want):
+        if a != b:
+            raise AssertionError(f"native scan of {ns}/{name}: {a} != the "
+                                 f"regex loop's {b}")
+    if scan_calls != len(logs):
+        raise AssertionError(f"scan_logs called {scan_calls} times for "
+                             f"{len(logs)} services")
+    lines_n = sum(len(lines) for lines in logs)
+    log(f"native scan: {len(logs)} services, {lines_n} lines, equal to the "
+        f"regex loop; {scan_native_s:.4f} s against {scan_python_s:.4f} s")
+
+    if store3.node_count() < EvidenceGraphStore._NATIVE_BFS_MIN_NODES:
+        raise AssertionError("the config-3 store is below the native BFS's "
+                             "threshold")
+    py = EvidenceGraphStore()      # the same graph, the Python BFS forced
+    py._nodes, py._edges = store3._nodes, store3._edges
+    py._out, py._in = store3._out, store3._in
+    py._NATIVE_BFS_MIN_NODES = 10 ** 9
+    picks = incident_ids3[::max(1, len(incident_ids3) // NATIVE_INCIDENTS)][
+        :NATIVE_INCIDENTS]
+    with store3._lock:
+        t0 = time.perf_counter()
+        store3._undirected_coo()
+        coo_s = time.perf_counter() - t0
+    bfs = {}
+    for depth in (1, 3):
+        before = native_counts()["khop_reach"]
+        t0 = time.perf_counter()
+        with store3._lock:
+            reach = [store3._bfs_reach(f"incident:{i}", depth) for i in picks]
+        native_s = time.perf_counter() - t0
+        calls = native_counts()["khop_reach"] - before
+        t0 = time.perf_counter()
+        with py._lock:
+            ref = [py._bfs_reach(f"incident:{i}", depth) for i in picks]
+        python_s = time.perf_counter() - t0
+        if reach != ref or calls != len(picks):
+            raise AssertionError(f"native BFS at depth {depth}: "
+                                 f"{calls} calls, equal {reach == ref}")
+        sizes = [len(r) for r in reach]
+        t0 = time.perf_counter()
+        for i in picks:
+            store3.get_incident_subgraph(str(i), depth=depth)
+        subgraph_s = time.perf_counter() - t0
+        bfs[f"depth{depth}"] = {
+            "incidents": len(picks), "native_s": native_s,
+            "python_s": python_s, "subgraph_route_s": subgraph_s,
+            "reach_nodes_min": min(sizes), "reach_nodes_max": max(sizes)}
+        log(f"native BFS depth {depth}: {len(picks)} incidents equal to the "
+            f"Python BFS (reach {min(sizes)}-{max(sizes)} nodes); "
+            f"{native_s:.4f} s against {python_s:.4f} s")
+    return {"nodes": store3.node_count(), "edges": store3.edge_count(),
+            "coo_build_s": coo_s, "bfs": bfs,
+            "scan": {"services": len(logs), "lines": lines_n,
+                     "native_s": scan_native_s, "python_s": scan_python_s},
+            "calls": native_counts(),
+            "phase_s": time.perf_counter() - t_phase}
+
+
+# -- phase 19: rules serving on a mesh (ROADMAP item 9a) --------------------
+
+MESH_SHAPES = {"dp2": (2, 1), "dp4": (4, 1), "graph4": (1, 4),
+               "dp2_graph2": (2, 2)}
+"""Phase 19's snapshot meshes, (dp, graph), every position on the card."""
+MESH_SHARDS = (2, 4)
+"""serve_graph_shards of phase 19's config-4 churn."""
+
+
+def split_counts() -> dict:
+    """B1's launches by entry: the whole pass and the two graph-axis
+    halves."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
+    return {"rules_fold": rf.launches,
+            "rules_fold_partial": rf.partial_launches,
+            "rules_tail": rf.tail_launches}
+
+
+def count_delta(c0: dict, c1: dict) -> dict:
+    return {k: c1[k] - c0[k] for k in c0}
+
+
+def split_check(args, pair_width: int, shards: int, what: str) -> dict:
+    """``rules_fold_partial`` on each of ``shards`` node blocks and
+    ``rules_tail`` on their sum, each against its plain version on the
+    card and the tail of the sum against one ``rules_fold`` launch, bit
+    for bit; then both entries timed (block 0's partial) with their
+    bounds. Comparison launches are not the path's (``kept_counts``)."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph.schema import DIM
+    from kubernetes_aiops_evidence_graph_tpu_torch.kernels import rules_fold as rf
+    features, ev_idx, ev_cnt, ev_pair, chain = args
+    pn, pi = features.shape[0], ev_idx.shape[0]
+    nps = pn // shards
+    with kept_counts():
+        total = None
+        for g in range(shards):
+            blk = features[g * nps:(g + 1) * nps]
+            got = rf.rules_fold_partial_packed(blk, g * nps, nps, ev_idx,
+                                               ev_cnt, ev_pair, pair_width)
+            want = torch.cat(rf.rules_fold_partial_reference(
+                blk, g * nps, nps, ev_idx, ev_cnt, ev_pair, pair_width), 1)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)):
+                raise AssertionError(f"{what}: rules_fold_partial block {g} "
+                                     "differs from its plain version")
+            total = got if total is None else total + got
+        counts, pairs = total[:, :DIM], total[:, DIM:]
+        tail = rf.rules_tail(counts, pairs, chain)
+        err = assert_equal_outputs(tail, rf.rules_tail_reference(
+            counts, pairs, chain), f"{what}: rules_tail")
+        err = max(err, assert_equal_outputs(
+            tail, rf.rules_fold(*args, pair_width),
+            f"{what}: rules_tail(sum of {shards} partials) vs rules_fold"))
+        blk0 = features[:nps]
+        tp = timed(lambda: rf.rules_fold_partial_packed(
+            blk0, 0, nps, ev_idx, ev_cnt, ev_pair, pair_width),
+            lambda: rf.rules_fold_partial_reference(
+                blk0, 0, nps, ev_idx, ev_cnt, ev_pair, pair_width))
+        tt = timed(lambda: rf.rules_tail(counts, pairs, chain),
+                   lambda: rf.rules_tail_reference(counts, pairs, chain))
+    idx_np, cnt_np = ev_idx.cpu().numpy(), ev_cnt.cpu().numpy()
+    live = np.arange(idx_np.shape[1])[None, :] < cnt_np[:, None]
+    in_blk = int((live & (idx_np >= 0) & (idx_np < nps)).sum())
+    tp.update(bound_of(rf.partial_bound_bytes(idx_np, cnt_np, 0, nps,
+                                              pair_width),
+                       in_blk * (DIM + 1)))
+    tt.update(bound_of(rf.tail_bound_bytes(pi, pair_width),
+                       pi * (DIM + pair_width)))
+    shape = {"Pn": pn, "Pi": pi, "W": int(idx_np.shape[1]),
+             "Wr": pair_width, "shards": shards, "nps": nps,
+             "live_slots_in_block0": in_blk}
+    log(f"{what}: split == plain and == one rules_fold over {shards} blocks "
+        f"{shape}; partial {tp['ms']} ms (bound {tp['bound_ms']:.6f}), tail "
+        f"{tt['ms']} ms (bound {tt['bound_ms']:.6f})")
+    return {"shape": shape, "partial": tp, "tail": tt, "max_abs_err": err}
+
+
+def run_mesh(dev, snapshot, c3_backend, num_pods: int = 10_000,
+             num_incidents: int = 100, events: int = 2000,
+             batch_size: int = 100, rescore_every: int = 5, seed: int = 0,
+             pack_events: int = 500, per_round: int = 25) -> dict:
+    """Phase 19 (ROADMAP item 9a): rules serving on meshes of positions on
+    one card, each built from explicit devices (``serving_mesh`` with
+    ``strict=True`` for the scorers). Config-3 snapshot scoring at dp 2
+    and 4 (``rules_fold`` on each row block) and at (dp, graph) (1, 4)
+    and (2, 2) (``rules_fold_partial`` on each position's node block, one
+    sum over ``graph``, then ``rules_tail``), bit-equal to one
+    ``rules_fold`` pass; the split
+    against its plain versions at config 3 and on config 4's resident
+    state, timed with its bounds (``split_check``); the config-4 churn
+    (``events`` full-mix events in ticks of ``batch_size``,
+    ``tick_async`` at depth 2, a ``rescore()`` every ``rescore_every``
+    ticks and at the end) through a single scorer and the graph-sharded
+    scorers at ``MESH_SHARDS``, on one store, bit-equal at every
+    rescore, with each entry's launches counted against the device
+    passes; four config-4 tenants on a pack over a (1 x 2) mesh against
+    their single scorers over ``pack_events`` events a tenant."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel import (
+        device_put_graph_sharded, device_put_sharded_batch,
+        make_graph_sharded_score, make_mesh, make_sharded_score,
+        serving_mesh, shard_batch)
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel.compat import (
+        Sharded)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
+        StreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.surge import (
+        MultiTenantScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        churn_events, store_step)
+    t_phase = time.perf_counter()
+    launches: dict[str, dict] = {}
+    err = 0.0
+
+    # -- config-3 snapshot scoring on four meshes ------------------------
+    batch = c3_backend.prepared(snapshot)
+    with kept_counts():
+        one = c3_backend.dispatch(snapshot)
+        torch.cuda.synchronize()
+    for name, (dp, graph) in MESH_SHAPES.items():
+        mesh = make_mesh(dp, graph, [dev] * (dp * graph))
+        sb = shard_batch(batch, dp)
+        if graph == 1:
+            args = device_put_sharded_batch(sb, mesh)
+            score = make_sharded_score(mesh, sb.rows_per_shard,
+                                       sb.pair_width)
+        else:
+            args = device_put_graph_sharded(sb, mesh, graph)
+            score = make_graph_sharded_score(
+                mesh, sb.rows_per_shard, snapshot.padded_nodes // graph,
+                sb.pair_width)
+        c0 = split_counts()
+        out = score(*args)
+        torch.cuda.synchronize()
+        n = count_delta(c0, split_counts())
+        want = ({"rules_fold": dp, "rules_fold_partial": 0, "rules_tail": 0}
+                if graph == 1 else
+                {"rules_fold": 0, "rules_fold_partial": dp * graph,
+                 "rules_tail": dp})
+        if n != want:
+            raise AssertionError(f"config 3 on {name}: launches {n}, "
+                                 f"expected {want}")
+        err = max(err, assert_equal_outputs(out, one,
+                                            f"config 3 on a {name} mesh"))
+        launches[f"config3_{name}"] = n
+    log(f"config 3 on meshes {MESH_SHAPES}: every output == one rules_fold "
+        f"pass; launches {launches}")
+
+    # -- the split against its plain versions, config 3 ------------------
+    c3_args = (*c3_backend.device_arrays(snapshot),
+               torch.zeros(batch.padded_incidents, device=dev))
+    split = {"config3": split_check(c3_args, batch.pair_width, 4,
+                                    "config 3")}
+
+    # -- the config-4 churn at serve_graph_shards 2 and 4 -----------------
+    settings, cluster, builder, _ = streaming_world(num_pods, num_incidents,
+                                                    seed)
+    store = builder.store
+    now_s = cluster.now.timestamp()
+    scorers = {1: StreamingScorer(store, settings, now_s=now_s, device=dev)}
+    for d in MESH_SHARDS:
+        mesh = serving_mesh(d, devices=[dev] * d, strict=True)
+        scorers[d] = StreamingScorer(store, settings, now_s=now_s,
+                                     device=dev, mesh=mesh)
+        feats = scorers[d]._features_dev
+        if not (isinstance(feats, Sharded) and feats.placement.axis
+                == "graph" and feats.blocks.shape == (1, d)):
+            raise AssertionError(f"D={d}: the features are not {d} node "
+                                 "blocks")
+    ref = scorers[1].rescore()
+    for d in MESH_SHARDS:
+        bit_equal_verdicts(scorers[d].rescore(), ref, f"config 4 D={d} cold")
+    stream = list(churn_events(cluster, events, seed=seed + 1,
+                               incident_ids=tuple(store.incident_ids())))
+    d0 = {d: s.dispatches for d, s in scorers.items()}
+    host_s = {d: [] for d in scorers}
+    checked = 0
+    reset_counts()
+    ticks = 0
+    for start in range(0, len(stream), batch_size):
+        for ev in stream[start:start + batch_size]:
+            store_step(cluster, store, ev)
+        ticks += 1
+        order = list(scorers) if ticks % 2 else list(scorers)[::-1]
+        for d in order:
+            t0 = time.perf_counter()
+            scorers[d].sync()
+            scorers[d].tick_async()
+            host_s[d].append(time.perf_counter() - t0)
+        if ticks % rescore_every == 0 or start + batch_size >= len(stream):
+            ref = scorers[1].rescore()
+            for d in MESH_SHARDS:
+                bit_equal_verdicts(scorers[d].rescore(), ref,
+                                   f"config 4 D={d} after tick {ticks}")
+            checked += 1
+    torch.cuda.synchronize()
+    n = split_counts()
+    passes = {d: s.dispatches - d0[d] for d, s in scorers.items()}
+    want = {"rules_fold": passes[1],
+            "rules_fold_partial": sum(d * passes[d] for d in MESH_SHARDS),
+            "rules_tail": sum(passes[d] for d in MESH_SHARDS)}
+    if n != want:
+        raise AssertionError(f"config 4 churn on meshes: launches {n}, "
+                             f"expected {want} for passes {passes}")
+    launches["config4_churn"] = n
+    rebuilds = {d: s.rebuilds for d, s in scorers.items()}
+    log(f"config 4 churn on meshes: {len(stream)} events, {ticks} ticks, "
+        f"{checked} rescores bit-equal at D {MESH_SHARDS} to D=1; passes "
+        f"{passes}, launches {n}, rebuilds {rebuilds}")
+    res_args, res_err = resident_kernel_check(
+        scorers[1], "config 4 resident tensors for the split")
+    err = max(err, res_err)
+    split["config4"] = split_check(res_args, scorers[1].pair_width, 4,
+                                   "config 4")
+
+    # -- four config-4 tenants on a pack over a (1 x 2) mesh --------------
+    worlds = {}
+    for t in range(SURGE_TENANTS):
+        cfg, c, b, _ = streaming_world(num_pods, num_incidents, seed + t)
+        worlds[f"t{t}"] = (c, b)
+    now_s = max(c.now.timestamp() for c, _ in worlds.values())
+    stores = {name: b.store for name, (_, b) in worlds.items()}
+    pack = MultiTenantScorer(stores, cfg, now_s=now_s, device=dev,
+                             mesh=serving_mesh(2, devices=[dev] * 2,
+                                               strict=True))
+    if not isinstance(pack._features_dev, Sharded):
+        raise AssertionError("the pack's features are not on its mesh")
+    singles = {name: StreamingScorer(st, cfg, now_s=now_s, device=dev)
+               for name, st in stores.items()}
+    compared = surge_parity(pack, singles, "mesh pack, cold")
+    streams = {name: list(churn_events(
+        c, pack_events, seed=seed + 101 + t,
+        incident_ids=tuple(b.store.incident_ids())))
+        for t, (name, (c, b)) in enumerate(worlds.items())}
+    rounds = (pack_events + per_round - 1) // per_round
+    p0 = pack.dispatches
+    c0 = split_counts()
+    for r in range(rounds):
+        for name, (c, b) in worlds.items():
+            for ev in streams[name][r * per_round:(r + 1) * per_round]:
+                store_step(c, b.store, ev)
+        for s in (pack, *singles.values()):
+            s.sync()
+            s.tick_async()
+        if (r + 1) % rescore_every == 0:
+            compared = surge_parity(pack, singles, f"mesh pack round {r + 1}")
+    compared = surge_parity(pack, singles, "mesh pack after the churn",
+                            pack.serve())
+    torch.cuda.synchronize()
+    n = count_delta(c0, split_counts())
+    pack_passes = pack.dispatches - p0
+    if (n["rules_fold_partial"], n["rules_tail"]) != (2 * pack_passes,
+                                                      pack_passes):
+        raise AssertionError(f"mesh pack: launches {n} for {pack_passes} "
+                             "pack passes")
+    launches["surge_pack_d2"] = n
+    log(f"mesh pack: 4 tenants over (1 x 2), {rounds} rounds, {compared} "
+        f"incidents bit-equal to the singles; pack passes {pack_passes}, "
+        f"launches {n}")
+    p50 = {f"D{d}": statistics.median(v) for d, v in host_s.items()}
+    return {"snapshot_meshes": {k: list(v) for k, v in MESH_SHAPES.items()},
+            "config4": {"events": len(stream), "ticks": ticks,
+                        "rescores_checked": checked, "passes": passes,
+                        "rebuilds": rebuilds,
+                        "host_s_per_tick_p50": p50,
+                        "Pn": scorers[1].snapshot.padded_nodes,
+                        "Pi": scorers[1].snapshot.padded_incidents},
+            "pack": {"tenants": len(stores), "shards": 2, "rounds": rounds,
+                     "events_per_tenant": pack_events, "passes": pack_passes,
+                     "incidents_compared": compared,
+                     "Pn": pack.snapshot.padded_nodes,
+                     "Pi": pack.snapshot.padded_incidents},
+            "split": split, "launches": launches, "max_abs_err": err,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def by_incident(out: dict, key: str) -> list:
     """``out[key]`` row by row, in sorted incident-id order."""
     rows = {iid: i for i, iid in enumerate(out["incident_ids"])}
@@ -4553,7 +4958,9 @@ def main(argv: list[str]) -> int:
 
     # -- 4. config 3 end to end, rules -------------------------------------
     t0 = time.perf_counter()
-    incidents, evidence, snapshot = build_world(35_000, 500, seed=0)
+    store3: list = []
+    incidents, evidence, snapshot = build_world(35_000, 500, seed=0,
+                                                store_out=store3)
     log(f"config 3 world: {snapshot.num_nodes} nodes, {snapshot.num_incidents} "
         f"incidents, Pn={snapshot.padded_nodes} Pi={snapshot.padded_incidents} "
         f"Pe={snapshot.padded_edges} ({time.perf_counter() - t0:.1f} s)")
@@ -4685,6 +5092,18 @@ def main(argv: list[str]) -> int:
     surge = run_surge(dev)
     rules_learned.update({f"surge_{k}": n
                           for k, n in surge["launches"].items()})
+
+    # -- 18. the native host kernels: the log scanner over the config-4
+    # world's services, the k-hop BFS on the config-3 store --------------
+    native_run = run_native(store3[0], [inc.id for inc in incidents])
+
+    # -- 19. rules serving on meshes of positions on the card: config-3
+    # snapshot scoring, B1's split, the config-4 churn at D 2 and 4, the
+    # pack at D 2 ---------------------------------------------------------
+    mesh_run = run_mesh(dev, snapshot, backend)
+    rules_learned.update({f"mesh_{k}": c["rules_fold"]
+                          for k, c in mesh_run["launches"].items()})
+    split_paths = {f"mesh_{k}": c for k, c in mesh_run["launches"].items()}
 
     kernels = [{
         "name": "rules_fold", "route": "cuda",
@@ -4832,6 +5251,47 @@ def main(argv: list[str]) -> int:
             "config4_online_learner": {k: online["grad_w"][k] for k in (
                 "ms_per_launch", "bound_ms", "launches")}},
     })
+    for name, entry, path in (
+            ("rules_fold_partial", "partial", "sharded_rules_tick :116 and "
+             "sharded_rules.py:112 (evidence_fold_block)"),
+            ("rules_tail", "tail", "sharded_rules_tick :116 and "
+             "rca/tpu_backend.py:319 (finish_scores)")):
+        t = mesh_run["split"]["config3"][entry]
+        t4 = mesh_run["split"]["config4"][entry]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "kubernetes_aiops_evidence_graph_tpu_torch/kernels/"
+                      "rules_fold.cu",
+            "replaces": "kubernetes_aiops_evidence_graph_tpu/experiments/"
+                        "pallas_rules.py:113 (_rules_kernel) + "
+                        "kubernetes_aiops_evidence_graph_tpu/rca/"
+                        "tpu_backend.py:258 (_aggregate), as the graph-"
+                        "sharded paths split them: kubernetes_aiops_"
+                        "evidence_graph_tpu/parallel/sharded_streaming.py:"
+                        + path,
+            "launches": sum(c[name] for c in split_paths.values()),
+            "launches_by_path": {k: c[name] for k, c in split_paths.items()},
+            "max_abs_err": mesh_run["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes B1's fold of "
+                            "one node block or its rules tail",
+            "timed_by": t["timed_by"], "ms_per_call": t["ms_per_call"],
+            "plain_ms_per_call": t["plain_ms_per_call"],
+            "bound_bytes": t["bound_bytes"], "bound_ops": t["bound_ops"],
+            "config3_shape": mesh_run["split"]["config3"]["shape"],
+            "config4_shape": mesh_run["split"]["config4"]["shape"],
+            "config4": {k: t4[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
+                "ms_per_call", "timed_by")},
+        })
+    log(f"native ({smi}): scan {native_run['scan']}, BFS "
+        f"{native_run['bfs']}, calls {native_run['calls']}; phase "
+        f"{native_run['phase_s']:.1f} s")
+    log(f"mesh ({smi}): launches {mesh_run['launches']}; config-4 host s a "
+        f"tick p50 {mesh_run['config4']['host_s_per_tick_p50']}; phase "
+        f"{mesh_run['phase_s']:.1f} s")
     for kind, r in recovery["kinds"].items():
         log(f"recovery {kind} ({smi}): {r['faults_fired']} faults, "
             f"transitions {r['tier_log']}, restart replayed "
@@ -4995,6 +5455,8 @@ def main(argv: list[str]) -> int:
             "phase_s")},
         "rules_fold": {k: v for k, v in surge["rules_fold"].items()
                        if k != "launches"}}}, default=str))
+    print(json.dumps({"native": {"card": smi, **native_run}}))
+    print(json.dumps({"mesh": {"card": smi, **mesh_run}}, default=str))
     print(json.dumps({"cli": {"card": smi, **cli_run}}))
     print(json.dumps({"blast": {"card": smi, **blast}}))
     print(json.dumps({"live": {"card": smi, **live}}))

@@ -447,13 +447,13 @@ def main() -> None:  # pragma: no cover - manual entrypoint
     """Serve the platform on the CUDA device. KAEG_CLUSTER_BACKEND selects
     the evidence source (fake = hermetic demo cluster, kubernetes = live
     K8s/Prometheus/Loki, collectors/live.py); KAEG_NUM_PROCESSES > 1 (a
-    multi-host process group) is ROADMAP item 9 and raises."""
+    multi-host process group) is ROADMAP item 9c and raises."""
     import os
     nproc = int(os.environ.get("KAEG_NUM_PROCESSES", "1") or 1)
     if nproc > 1:
         raise NotImplementedError(
             f"KAEG_NUM_PROCESSES={nproc}: multi-host serving "
-            "(parallel/multihost.py) is not ported yet: ROADMAP item 9")
+            "(parallel/multihost.py) is not ported yet: ROADMAP item 9c")
     settings = get_settings()
     if settings.cluster_backend == "kubernetes":
         from .collectors.live import LiveClusterBackend

@@ -40,31 +40,60 @@ STACK_TRACE_PATTERNS = (
 )
 
 
+def scan_python(lines: list[str]):
+    """The plain version of ``LogsCollector._scan``: the regex catalog
+    over each line (reference logs_collector.py:167-219)."""
+    patterns_found: list[str] = []
+    error_count = 0
+    network_error_count = 0
+    samples: list[str] = []
+    for line in lines:
+        matched_any = False
+        for category, rx in ERROR_PATTERNS.items():
+            if rx.search(line):
+                if category not in patterns_found:
+                    patterns_found.append(category)
+                matched_any = True
+                if category in _NETWORK_CATEGORIES:
+                    network_error_count += 1
+        if matched_any:
+            error_count += 1
+            if len(samples) < 10:  # :205-219
+                samples.append(line[:500])
+    return patterns_found, error_count, network_error_count, samples
+
+
 class LogsCollector(BaseCollector):
     name = "logs"
     source = EvidenceSource.LOKI
 
     def _scan(self, lines: list[str]):
-        """Pattern scan over the lines with the compiled regex catalog:
-        (patterns_found in first-seen order, error_count,
-        network_error_count, up to 10 sample lines)."""
+        """Pattern scan through the native single-pass scanner
+        (kernels/kaeg_native.cpp ``scan_logs``): (patterns_found in
+        first-seen order, error_count, network_error_count, up to 10
+        sample lines), the same as :func:`scan_python` gives, which the
+        tests and ``chip_smoke.py`` hold it to. A library that cannot be
+        built raises ``kernels._build.KernelError``."""
+        from .. import native as _native
+        _counts, flags = _native.scan_logs_native(lines)
         patterns_found: list[str] = []
         error_count = 0
         network_error_count = 0
         samples: list[str] = []
-        for line in lines:
-            matched_any = False
-            for category, rx in ERROR_PATTERNS.items():
-                if rx.search(line):
-                    if category not in patterns_found:
-                        patterns_found.append(category)
-                    matched_any = True
-                    if category in _NETWORK_CATEGORIES:
-                        network_error_count += 1
-            if matched_any:
-                error_count += 1
-                if len(samples) < 10:  # :205-219
-                    samples.append(line[:500])
+        cats = [c for c, _a, _b in _native.LOG_CATEGORIES]
+        net_mask = sum(1 << i for i, c in enumerate(cats)
+                       if c in _NETWORK_CATEGORIES)
+        for i, line in enumerate(lines):
+            bits = int(flags[i])
+            if not bits:
+                continue
+            for ci, cat in enumerate(cats):
+                if bits >> ci & 1 and cat not in patterns_found:
+                    patterns_found.append(cat)
+            error_count += 1
+            network_error_count += (bits & net_mask).bit_count()
+            if len(samples) < 10:
+                samples.append(line[:500])
         return patterns_found, error_count, network_error_count, samples
 
     def collect(self, incident: Incident) -> CollectorResult:

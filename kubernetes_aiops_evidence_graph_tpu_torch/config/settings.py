@@ -150,8 +150,10 @@ class Settings:
     # corrupted block is repaired in place from the host truth
     mesh_attest: bool = True
 
-    # --- not ported yet: any value but the default raises ---
-    # graph-sharded and data-parallel serving meshes (ROADMAP item 9)
+    # --- serving meshes (parallel/): the rules scorer serves on a
+    # graph-sharded and/or data-parallel mesh (ROADMAP item 9a); with
+    # rca_backend="gnn" (9b), shield_enabled or elastic_enabled (9c) a
+    # value above 1 raises ---
     serve_graph_shards: int = 1
     mesh_dp: int = 1
 
@@ -170,7 +172,7 @@ class Settings:
     # admission shed-ratio EWMA and the roofline drift of one pack, and
     # gates D -> D' scale decisions behind hysteresis + dwell. On one card
     # the shard ladder is (1,), so it decides and never steps; a step
-    # (shield.scale_mesh) is ROADMAP item 9
+    # (shield.scale_mesh) is ROADMAP item 9c
     elastic_enabled: bool = False
     # both directions must hold for dwell_s before a scale fires
     elastic_dwell_s: float = 10.0

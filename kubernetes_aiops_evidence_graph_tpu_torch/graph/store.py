@@ -46,6 +46,10 @@ class _Edge:
 class EvidenceGraphStore:
     """Mutable, thread-safe, in-memory property graph."""
 
+    # below this many nodes the Python BFS beats the cost of materializing
+    # the COO index for the native kernel
+    _NATIVE_BFS_MIN_NODES = 2048
+
     def __init__(self) -> None:
         self._lock = threading.RLock()
         self._nodes: dict[str, _Node] = {}
@@ -53,6 +57,8 @@ class EvidenceGraphStore:
         self._out: dict[str, set[tuple[str, RelationKind]]] = {}
         self._in: dict[str, set[tuple[str, RelationKind]]] = {}
         self._version = 0  # bumps on every mutation; snapshot cache key
+        # the native BFS's undirected COO index, keyed by _version
+        self._coo_cache: tuple[int, list[str], dict[str, int], Any, Any] | None = None
         self._next_index = 0  # monotone: removal never reassigns indices
         # change journal: every structural mutation appends one record so a
         # resident StreamingScorer can mirror the graph without rebuilding
@@ -272,10 +278,34 @@ class EvidenceGraphStore:
                 out += [(s, RelationKind(k).name) for s, k in self._in.get(node_id, ())]
             return out
 
+    def _undirected_coo(self) -> tuple[list[str], dict[str, int], Any, Any]:
+        """Version-cached undirected COO edge index for the native BFS
+        kernel, with the id→dense-row map (node .index has holes after
+        removals, so rows are assigned here). Caller must hold the lock."""
+        import numpy as np
+
+        if self._coo_cache is not None and self._coo_cache[0] == self._version:
+            return (self._coo_cache[1], self._coo_cache[2],
+                    self._coo_cache[3], self._coo_cache[4])
+        nodes = sorted(self._nodes.values(), key=lambda n: n.index)
+        ids = [n.id for n in nodes]
+        row = {n.id: i for i, n in enumerate(nodes)}
+        m = len(self._edges)
+        src = np.empty(2 * m, dtype=np.int32)
+        dst = np.empty(2 * m, dtype=np.int32)
+        for i, e in enumerate(self._edges.values()):
+            s, d = row[e.src], row[e.dst]
+            src[i], dst[i] = s, d
+            src[m + i], dst[m + i] = d, s     # reverse edge: BFS is undirected
+        self._coo_cache = (self._version, ids, row, src, dst)
+        return ids, row, src, dst
+
     def get_incident_subgraph(self, incident_id: str, depth: int = 3) -> dict[str, Any]:
         """Depth-limited undirected subgraph around an incident — the
-        reference's apoc.path.subgraphAll(maxLevel=depth) (neo4j.py:169-201),
-        as a Python BFS."""
+        reference's apoc.path.subgraphAll(maxLevel=depth) (neo4j.py:169-201).
+        Graphs of ``_NATIVE_BFS_MIN_NODES`` nodes or more use the native C++
+        BFS kernel (kernels/kaeg_native.cpp ``khop_reach``) over a
+        version-cached COO index; smaller graphs use the Python BFS."""
         nid = incident_id if incident_id.startswith("incident:") else f"incident:{incident_id}"
         with self._lock:
             if nid not in self._nodes:
@@ -296,7 +326,15 @@ class EvidenceGraphStore:
 
     def _bfs_reach(self, nid: str, depth: int) -> set[str]:
         """Node ids within `depth` undirected hops of `nid` (inclusive).
-        Caller must hold the lock."""
+        Caller must hold the lock. At ``_NATIVE_BFS_MIN_NODES`` nodes or
+        more, the native kernel (a library that cannot be built raises
+        ``kernels._build.KernelError``); below, the Python BFS."""
+        if len(self._nodes) >= self._NATIVE_BFS_MIN_NODES:
+            from .. import native as _native
+            ids, row, src, dst = self._undirected_coo()
+            seed = row[nid]     # dense COO row, NOT .index (holes)
+            reach = _native.khop_reach_native(src, dst, len(ids), seed, depth)
+            return {ids[i] for i in reach.nonzero()[0]}
         seen = {nid}
         frontier = [nid]
         for _ in range(depth):

@@ -8,6 +8,10 @@ headers (``kernels/*.cuh``), so an edited source never loads a stale
 library. Nothing here runs at import time.
 
 The target is ``sm_90a``: Hopper (H100, H200).
+
+One host source builds here too: ``kernels/kaeg_native.cpp`` (the log
+scanner and the k-hop BFS behind ``native.py``) compiles with ``g++ -O3
+-shared -fPIC -std=c++17``, the same way and into the same directory.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ from pathlib import Path
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
 SOURCES = ("rules_fold", "gms", "fused_tick", "grad_w")
+HOST_SOURCES = ("kaeg_native",)
+"""Host C++ sources (``kernels/<name>.cpp``), built with g++."""
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -45,25 +51,43 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if not gxx:
+        raise KernelError("g++ not found: put it on PATH to build the "
+                          "native host library")
+    return gxx
+
+
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((KERNEL_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(KERNEL_DIR.glob("*.cuh")):
-        digest.update(header.read_bytes())
-    digest.update(" ".join(_ARCH_FLAGS).encode())
+    if name in HOST_SOURCES:
+        digest = hashlib.sha256((KERNEL_DIR / f"{name}.cpp").read_bytes())
+        digest.update(" ".join(_HOST_FLAGS).encode())
+    else:
+        digest = hashlib.sha256((KERNEL_DIR / f"{name}.cu").read_bytes())
+        for header in sorted(KERNEL_DIR.glob("*.cuh")):
+            digest.update(header.read_bytes())
+        digest.update(" ".join(_ARCH_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _command(name: str, out: Path) -> list[str]:
+    if name in HOST_SOURCES:
+        return [_gxx(), *_HOST_FLAGS, str(KERNEL_DIR / f"{name}.cpp"),
+                "-o", str(out)]
     return [_nvcc(), *_ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
             "-o", str(out), str(KERNEL_DIR / f"{name}.cu")]
 
 
-def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
-    """Compile every missing library, one ``nvcc`` per source, all started
+def build_all(names: tuple[str, ...] = SOURCES + HOST_SOURCES
+              ) -> dict[str, dict]:
+    """Compile every missing library, one compiler process per source
+    (``nvcc`` for a ``.cu``, ``g++`` for a host ``.cpp``), all started
     together. Returns ``{name: {"seconds", "log", "cached"}}`` with the
     compiler's output (``-Xptxas=-v`` prints registers, shared memory and
     spills). Raises if any build fails."""
@@ -86,7 +110,8 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
         report[name] = {"seconds": time.perf_counter() - t0, "log": log,
                         "cached": False}
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failed.append(f"{name}: {proc.args[0]} exited "
+                          f"{proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
@@ -95,7 +120,8 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``kernels/<name>.cu``, built on first use."""
+    """The loaded library for ``kernels/<name>.cu`` (or a host
+    ``kernels/<name>.cpp``), built on first use."""
     lib = _libs.get(name)
     if lib is not None:
         return lib

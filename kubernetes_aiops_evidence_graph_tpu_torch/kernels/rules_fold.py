@@ -29,6 +29,13 @@ whole rules tail on chip, so nothing between the fold and the verdict
 touches device memory; its floor is a launch and two dependent round
 trips (the row's indices, then the rows). See the ``.cu`` source for what
 is left for later.
+
+The graph-sharded paths (``parallel/``) split the pass in two, on the
+same device code: :func:`rules_fold_partial` folds one node block of the
+feature table, the mesh sums the blocks' partials over its graph axis in
+position order, and :func:`rules_tail` runs the tail on the sum. For
+integer-valued features (every column a condition reads) that equals one
+:func:`rules_fold` pass bit for bit. Each entry counts its own launches.
 """
 from __future__ import annotations
 
@@ -57,6 +64,9 @@ _FOLD_CHUNK = 256
 # chunk of the pair axis of the one-hot contraction: bounds the
 # [Pi, chunk, pair_chunk] intermediate at wide pair buckets
 _PAIR_CHUNK = 64
+
+# bytes of the seven outputs of one row
+_OUT_BYTES = NUM_CONDS + NUM_RULES + NUM_RULES * 4 + 4 + 1 + 4 + 4
 
 # static rule tensors (host constants)
 _RULE_COND = np.zeros((NUM_RULES, NUM_CONDS), dtype=np.float32)
@@ -222,11 +232,50 @@ def rules_fold_reference(features, ev_idx, ev_cnt, ev_pair_slot, chain,
     return finish_scores(counts, per_row_max)
 
 
+def rules_fold_partial_reference(features_blk, lo: int, nps: int, ev_idx,
+                                 ev_cnt, ev_pair_slot, pair_width: int
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`rules_fold_partial`: the fold over
+    only the live slots whose global node id lies in ``[lo, lo + nps)``
+    (``features_blk`` holds those rows); other slots add nothing. Each
+    count column and each pair bin is summed in slot order from 0, one
+    slot a step (as the kernel sums), so the partials hold the kernel's
+    bits in every column, those of fractional features too."""
+    pi, width = ev_idx.shape
+    dev = features_blk.device
+    rows_i = torch.arange(pi, device=dev)
+    counts = torch.zeros((pi, features_blk.shape[1]), dtype=torch.float32,
+                         device=dev)
+    pair = torch.zeros((pi, pair_width + 1), dtype=torch.float32,
+                       device=dev)           # the last bin: "no node"
+    cnt = ev_cnt.clamp(0, width)
+    for w in range(width):
+        idx = ev_idx[:, w].long()
+        take = (w < cnt) & (idx >= lo) & (idx < lo + nps)
+        vals = features_blk[(idx - lo).clamp(0, nps - 1)]
+        counts = torch.where(take[:, None], counts + vals, counts)
+        slot = ev_pair_slot[:, w].long()
+        b = torch.where(take & (slot >= 0) & (slot < pair_width), slot,
+                        pair_width)
+        pair[rows_i, b] += torch.where(take, vals[:, F.POD_PROBLEM], 0.0)
+    return counts, pair[:, :pair_width].contiguous()
+
+
+def rules_tail_reference(counts, pair_counts, chain) -> tuple:
+    """Plain PyTorch version of :func:`rules_tail`."""
+    counts = counts + torch.clamp(chain, max=0.0)[:, None]
+    return finish_scores(counts, pair_counts.amax(dim=1))
+
+
 # --------------------------------------------------------------- kernel ----
 
 launches = 0
 """Kernel launches so far; a run resets it to show that its path went
 through the kernel. Plain-version calls never count."""
+partial_launches = 0
+"""Launches of :func:`rules_fold_partial`'s kernel, counted the same way."""
+tail_launches = 0
+"""Launches of :func:`rules_tail`'s kernel, counted the same way."""
 
 _tables: dict[torch.device, dict[str, torch.Tensor]] = {}
 _lib: ctypes.CDLL | None = None
@@ -242,6 +291,15 @@ def _library() -> ctypes.CDLL:
             p, p, p, i, p, p, p, i, f, f,      # tables .. unknown score
             p, p, p, p, p, p, p, p]            # outputs, stream
         lib.rules_fold_launch.restype = ctypes.c_int
+        lib.rules_fold_partial_launch.argtypes = [
+            p, i, i, p, p, p, i, i, i, i,      # features_blk .. pod_problem
+            p, i, p]                           # out, ld_out, stream
+        lib.rules_fold_partial_launch.restype = ctypes.c_int
+        lib.rules_tail_launch.argtypes = [
+            p, i, p, i, p, i, i,               # counts .. pair_width
+            p, p, p, i, p, p, p, i, f, f,      # tables .. unknown score
+            p, p, p, p, p, p, p, p]            # outputs, stream
+        lib.rules_tail_launch.restype = ctypes.c_int
         lib.rules_fold_error_string.argtypes = [ctypes.c_int]
         lib.rules_fold_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -303,13 +361,8 @@ def rules_fold(features: torch.Tensor, ev_idx: torch.Tensor,
         raise ValueError(f"pair_width {pair_width} outside "
                          f"[1, {PAIR_WIDTH_BUCKETS[-1]}]")
     t = _device_tables(dev)
-    conds = torch.empty((pi, NUM_CONDS), dtype=torch.bool, device=dev)
-    matched = torch.empty((pi, NUM_RULES), dtype=torch.bool, device=dev)
-    scores = torch.empty((pi, NUM_RULES), dtype=torch.float32, device=dev)
-    top_idx = torch.empty(pi, dtype=torch.int32, device=dev)
-    any_match = torch.empty(pi, dtype=torch.bool, device=dev)
-    top_conf = torch.empty(pi, dtype=torch.float32, device=dev)
-    top_score = torch.empty(pi, dtype=torch.float32, device=dev)
+    conds, matched, scores, top_idx, any_match, top_conf, top_score = (
+        _outputs(pi, dev))
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.rules_fold_launch(
@@ -331,6 +384,161 @@ def rules_fold(features: torch.Tensor, ev_idx: torch.Tensor,
     return conds, matched, scores, top_idx, any_match, top_conf, top_score
 
 
+def _check_rows(name: str, t: torch.Tensor, shape: tuple,
+                device: torch.device) -> None:
+    """A float32 [rows, n] operand that may be a column slice of a wider
+    tensor: its rows must be contiguous, any row stride."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, chain on {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+        raise ValueError(f"{name} must have contiguous rows")
+
+
+def _outputs(pi: int, dev: torch.device) -> tuple:
+    return (torch.empty((pi, NUM_CONDS), dtype=torch.bool, device=dev),
+            torch.empty((pi, NUM_RULES), dtype=torch.bool, device=dev),
+            torch.empty((pi, NUM_RULES), dtype=torch.float32, device=dev),
+            torch.empty(pi, dtype=torch.int32, device=dev),
+            torch.empty(pi, dtype=torch.bool, device=dev),
+            torch.empty(pi, dtype=torch.float32, device=dev),
+            torch.empty(pi, dtype=torch.float32, device=dev))
+
+
+def rules_fold_partial(features_blk: torch.Tensor, lo: int, nps: int,
+                       ev_idx: torch.Tensor, ev_cnt: torch.Tensor,
+                       ev_pair_slot: torch.Tensor, pair_width: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The evidence fold of one node block: features_blk [nps, DIM] f32
+    holds the feature rows of global node ids ``[lo, lo + nps)``; the
+    evidence tables are those of :func:`rules_fold` (global ids). Returns
+    (counts [Pi, DIM], pair_counts [Pi, pair_width]) over only the live
+    slots whose id lies in the block (no chain, no tail): other slots add
+    nothing, so the partials of the blocks that cover ``[0, Pn)``, summed
+    in block order, feed :func:`rules_tail` the whole fold's sums (exact
+    for integer-valued features). The two results are column slices of
+    one ``[Pi, DIM + pair_width]`` tensor (:func:`rules_fold_partial_packed`).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream (or raise)."""
+    if features_blk.device.type == "cpu":
+        return rules_fold_partial_reference(features_blk, lo, nps, ev_idx,
+                                            ev_cnt, ev_pair_slot, pair_width)
+    out = rules_fold_partial_packed(features_blk, lo, nps, ev_idx, ev_cnt,
+                                    ev_pair_slot, pair_width)
+    return out[:, :DIM], out[:, DIM:]
+
+
+def rules_fold_partial_packed(features_blk: torch.Tensor, lo: int, nps: int,
+                              ev_idx: torch.Tensor, ev_cnt: torch.Tensor,
+                              ev_pair_slot: torch.Tensor, pair_width: int
+                              ) -> torch.Tensor:
+    """:func:`rules_fold_partial` as one ``[Pi, DIM + pair_width]`` tensor
+    (counts, then pair counts): the operand of one sum over the mesh."""
+    global partial_launches
+    dev = features_blk.device
+    if dev.type == "cpu":
+        return torch.cat(rules_fold_partial_reference(
+            features_blk, lo, nps, ev_idx, ev_cnt, ev_pair_slot, pair_width),
+            dim=1)
+    if dev.type != "cuda":
+        raise ValueError(f"rules_fold_partial runs on cuda or cpu, not {dev}")
+    pi, width = ev_idx.shape
+    _check("features_blk", features_blk, torch.float32, (nps, DIM), dev)
+    _check("ev_idx", ev_idx, torch.int32, (pi, width), dev)
+    _check("ev_cnt", ev_cnt, torch.int32, (pi,), dev)
+    _check("ev_pair_slot", ev_pair_slot, torch.int32, (pi, width), dev)
+    if not 1 <= pair_width <= PAIR_WIDTH_BUCKETS[-1]:
+        raise ValueError(f"pair_width {pair_width} outside "
+                         f"[1, {PAIR_WIDTH_BUCKETS[-1]}]")
+    if lo < 0 or nps < 1:
+        raise ValueError(f"node block [{lo}, {lo + nps}) is empty or negative")
+    out = torch.empty((pi, DIM + pair_width), dtype=torch.float32,
+                      device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.rules_fold_partial_launch(
+            features_blk.data_ptr(), lo, nps, ev_idx.data_ptr(),
+            ev_cnt.data_ptr(), ev_pair_slot.data_ptr(), pi, width,
+            pair_width, int(F.POD_PROBLEM), out.data_ptr(), out.stride(0),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise _build.KernelError("rules_fold_partial launch failed: "
+                                 + lib.rules_fold_error_string(rc).decode())
+    partial_launches += 1
+    return out
+
+
+def rules_tail(counts: torch.Tensor, pair_counts: torch.Tensor,
+               chain: torch.Tensor) -> tuple:
+    """B1's tail on folded sums: counts [Pi, DIM] f32 plus ``min(chain,
+    0)``, per_row_max = the max of pair_counts [Pi, pair_width] f32 along
+    its row, then conditions → rules → first-maximal top-1. Returns the
+    seven outputs of :func:`rules_fold`. counts and pair_counts may be
+    column slices of one tensor (as :func:`rules_fold_partial` returns).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream (or raise)."""
+    global tail_launches
+    dev = chain.device
+    if dev.type == "cpu":
+        return rules_tail_reference(counts, pair_counts, chain)
+    if dev.type != "cuda":
+        raise ValueError(f"rules_tail runs on cuda or cpu, not {dev}")
+    pi, pair_width = pair_counts.shape
+    _check("chain", chain, torch.float32, (pi,), dev)
+    _check_rows("counts", counts, (pi, DIM), dev)
+    _check_rows("pair_counts", pair_counts, (pi, pair_width), dev)
+    if not 1 <= pair_width <= PAIR_WIDTH_BUCKETS[-1]:
+        raise ValueError(f"pair_width {pair_width} outside "
+                         f"[1, {PAIR_WIDTH_BUCKETS[-1]}]")
+    t = _device_tables(dev)
+    outs = _outputs(pi, dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.rules_tail_launch(
+            counts.data_ptr(), counts.stride(0), pair_counts.data_ptr(),
+            pair_counts.stride(0), chain.data_ptr(), pi, pair_width,
+            t["cond_mask"].data_ptr(), t["cond_thresh"].data_ptr(),
+            t["cond_op"].data_ptr(), NUM_CONDS,
+            t["rule_mask"].data_ptr(), t["rule_score"].data_ptr(),
+            t["rule_conf"].data_ptr(), NUM_RULES,
+            UNKNOWN_CONFIDENCE, UNKNOWN_FINAL_SCORE,
+            *(o.data_ptr() for o in outs),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise _build.KernelError("rules_tail launch failed: "
+                                 + lib.rules_fold_error_string(rc).decode())
+    tail_launches += 1
+    return outs
+
+
+def partial_bound_bytes(ev_idx: np.ndarray, ev_cnt: np.ndarray, lo: int,
+                        nps: int, pair_width: int) -> int:
+    """Bytes one :func:`rules_fold_partial` launch must move at least:
+    each distinct in-block feature row its live slots gather, once; the
+    node id of every live slot (each must be read to learn whether it is
+    in the block); the pair id of each in-block slot only; ev_cnt; and
+    the ``[Pi, DIM + pair_width]`` result."""
+    pi, width = ev_idx.shape
+    live = np.arange(width)[None, :] < np.asarray(ev_cnt)[:, None]
+    ids = ev_idx[live]
+    in_blk = ids[(ids >= lo) & (ids < lo + nps)]
+    rows = np.unique(in_blk).size
+    return (rows * DIM * 4 + ids.size * 4 + in_blk.size * 4 + pi * 4
+            + pi * (DIM + pair_width) * 4)
+
+
+def tail_bound_bytes(pi: int, pair_width: int) -> int:
+    """Bytes one :func:`rules_tail` launch must move: the counts, the pair
+    counts and chain, read once, and the seven outputs, written once."""
+    return pi * (DIM + pair_width + 1) * 4 + pi * _OUT_BYTES
+
+
 def bound_bytes(ev_idx: np.ndarray, ev_cnt: np.ndarray,
                 outputs: bool = True) -> int:
     """Bytes one pass must move at least: each distinct feature row the
@@ -342,5 +550,5 @@ def bound_bytes(ev_idx: np.ndarray, ev_cnt: np.ndarray,
     rows = np.unique(ev_idx[live]).size
     n = rows * DIM * 4 + int(live.sum()) * 8 + pi * 8
     if outputs:
-        n += pi * (NUM_CONDS + NUM_RULES + NUM_RULES * 4 + 4 + 1 + 4 + 4)
+        n += pi * _OUT_BYTES
     return n

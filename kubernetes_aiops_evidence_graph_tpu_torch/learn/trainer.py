@@ -17,7 +17,7 @@ first holds one loss + grads through the params' device against a CPU copy
 through the plain versions (:func:`check_grads_parity`) and RAISES on a
 mismatch; the JAX package instead falls back to its XLA step. The
 data-parallel fine-tune (``mesh_shards > 1``) is not ported yet (ROADMAP
-item 9) and raises.
+item 9b) and raises.
 """
 from __future__ import annotations
 
@@ -139,7 +139,7 @@ def finetune(serving_params, episodes: list, sim_episodes: list,
     if mesh_shards > 1:
         raise NotImplementedError(
             f"learn_mesh_shards={mesh_shards}: the data-parallel fine-tune "
-            "is not ported yet (ROADMAP item 9, multi-device); use 1")
+            "is not ported yet (ROADMAP item 9b, multi-device); use 1")
     schedule = _interleave(episodes, sim_episodes, steps)
     if pallas_grads:
         check_grads_parity(serving_params, schedule[0])

@@ -39,9 +39,12 @@ per-tick trace context through the entire hot path, with three pillars:
 The resident scorers (``rca/streaming.py``, ``rca/gnn_streaming.py``)
 stamp their ticks' stages and feed the roofline; the ingestion edge and
 the workflow feed ``SCOPE``, spans and the flight ring; each pack of a
-``rca/surge.SurgeServer`` fleet stamps its own ``pack`` label. What waits
-for multi-device serving (ROADMAP item 9): the sharded entry points and
-``SHARD_DELTA_ROWS`` routing.
+``rca/surge.SurgeServer`` fleet stamps its own ``pack`` label. On a mesh
+the rules scorer's delta router (``parallel/sharded_streaming.
+route_node_delta``) feeds ``SHARD_DELTA_ROWS`` and the flight records'
+``shard_rows``, and the graph-sharded tick is priced under its own entry
+point ``streaming.rules_tick.sharded`` (its sum over the graph axis in
+``collective_bytes``).
 
 Hard constraints this module keeps: all timestamps are host-side
 monotonic reads (the epoch anchor for OTLP export is taken ONCE from
@@ -416,7 +419,8 @@ class _Roofline:
         try:
             cost = tick_cost(entrypoint, **shapes)
             return {"hbm_bytes": int(cost["bytes"]),
-                    "flops": int(cost["flops"]), "collective_bytes": 0,
+                    "flops": int(cost["flops"]),
+                    "collective_bytes": int(cost["collective_bytes"]),
                     "shapes": dict(shapes)}
         except (TypeError, ValueError, KeyError) as exc:
             # advisory gauge: a pricing failure must never surface into

@@ -228,6 +228,30 @@ def _rules_tick(pn: int, pi: int, width: int, pk: int, rk: int,
     return {"delta": delta, "B1": rules_fold_term(pn, pi, width, dim)}
 
 
+def _sharded_rules_tick(pn: int, pi: int, width: int, pk: int, rk: int,
+                        shards: int, pair_width: int, dim: int = DIM,
+                        **_ignored) -> dict:
+    """The graph-sharded rules tick (``parallel/sharded_streaming.
+    sharded_rules_tick``) over D = ``shards`` positions: each copies its
+    routed feature rows (``pk`` a shard) and the row delta in, folds its
+    node block (``rules_fold_partial``, with every slot live every slot
+    falls in one block, so the gathered rows, the pair ids and the adds
+    split over the blocks while each block reads every slot's node id and
+    writes its ``[pi, DIM + pair_width]`` partial), the D partials are
+    summed over the graph axis, then ``rules_tail`` (B1's two entries)."""
+    li = pk + 2 * rk + 2 * rk * width
+    delta = (shards * (li * 4 + 2 * pk * dim * 4
+                       + rk * (2 * width + 1) * 4), 0)
+    live = pi * width
+    part = pi * (dim + pair_width) * 4
+    fold = (min(live, pn) * dim * 4 + live * 4
+            + shards * (live * 4 + pi * 4 + part), live * (dim + 1))
+    psum = ((shards - 1) * 3 * part, (shards - 1) * pi * (dim + pair_width))
+    tail = (pi * (dim + pair_width + 1) * 4 + pi * _RULES_OUT_BYTES, 0)
+    return {"delta": delta, "B1.partial": fold, "psum": psum,
+            "B1.tail": tail}
+
+
 def _composed_tick(pn: int, pi: int, pe: int, pk: int, ek: int, dim: int,
                    hidden: int, classes: int, layers: int, num_rels: int,
                    num_kinds: int, compute_bytes: int = 4) -> dict:
@@ -258,14 +282,22 @@ def tick_cost(entrypoint: str, **shapes) -> dict:
     counted live. ``{"bytes", "flops", "terms": {name: (bytes, ops)}}``.
 
     ``streaming.rules_tick`` takes ``pn, pi, width, pk, rk`` (``dim``
-    defaults to the schema's); the learned entry points take ``pn, pi,
+    defaults to the schema's); ``streaming.rules_tick.sharded`` also
+    ``shards`` and ``pair_width`` (``pk`` per shard), and prices the sum
+    over the graph axis as ``collective_bytes`` (the D - 1 partials that
+    move to the row's first position); the learned entry points take ``pn, pi,
     pe`` (the mirror's edge slots), ``pk, ek`` and the params' shapes
     ``hidden, layers`` (``dim, classes, num_rels, num_kinds`` default to
     the schema's). A learned entry point prices the GNN tick alone: the
     rules tick dispatched beside it is priced under its own entry point.
     The kernel terms are named by kernel (``B1``..``B4``)."""
+    collective = 0
     if entrypoint == "streaming.rules_tick":
         terms = _rules_tick(**shapes)
+    elif entrypoint == "streaming.rules_tick.sharded":
+        terms = _sharded_rules_tick(**shapes)
+        collective = ((shapes["shards"] - 1) * shapes["pi"]
+                      * (shapes.get("dim", DIM) + shapes["pair_width"]) * 4)
     elif entrypoint in GNN_ENTRYPOINTS:
         g = dict(dim=DIM, classes=NUM_CLASSES, num_rels=NUM_RELS,
                  num_kinds=len(EntityKind))
@@ -285,7 +317,7 @@ def tick_cost(entrypoint: str, **shapes) -> dict:
         raise KeyError(f"no cost model for entry point {entrypoint!r}")
     return {"bytes": int(sum(b for b, _ in terms.values())),
             "flops": int(sum(o for _, o in terms.values())),
-            "terms": terms}
+            "collective_bytes": int(collective), "terms": terms}
 
 
 # -- measured anchors -------------------------------------------------------

@@ -19,7 +19,7 @@ may span.
 On one card that ladder is ``(1,)``, so ``observe()`` decides and never
 steps. A step re-shards the resident state through the shield's
 ``scale_mesh`` after ``prewarm`` built the survivor mesh; both belong to
-multi-device serving (ROADMAP item 9) and raise until then.
+multi-device serving (ROADMAP item 9c) and raise until then.
 
 The controller never spawns its own thread: ``observe()`` is called from
 whatever cadence the host already has (a worker loop, a harness, a test
@@ -40,7 +40,7 @@ log = get_logger("elastic")
 
 def serving_devices() -> int:
     """Devices a serving mesh may span: one card. Multi-device serving
-    (``parallel/``) is ROADMAP item 9."""
+    (``parallel/``) is ROADMAP item 9c."""
     return 1
 
 
@@ -163,7 +163,7 @@ class ElasticController:
     def prewarm(self, target_shards: int) -> None:
         """Build the survivor mesh at the TARGET shard count before the
         scale event. A mesh is multi-device serving: raises naming ROADMAP
-        item 9 (``heal.survivor_mesh``)."""
+        item 9c (``heal.survivor_mesh``)."""
         from . import heal as heal_mod
         excluded = getattr(self.shield, "_mesh_excluded", ())
         heal_mod.survivor_mesh(int(target_shards), excluded)

@@ -34,7 +34,7 @@ Stages (where the hooks fire):
                        ``kind="shard_corrupt_silent"`` corrupts the block
                        and returns — the class only the attestation fold
                        can localize before it serves. One card is one
-                       shard; a graph-sharded mesh is ROADMAP item 9
+                       shard; a graph-sharded mesh is ROADMAP item 9c
 
 graft-storm widened the harness past the tick path — the ingest and
 learner paths previously had ZERO fault coverage:
@@ -278,7 +278,7 @@ class FaultInjector:
         tensor, in place on the scorer's own device, so the attestation
         fold must flag exactly that block. One card serves one shard, so
         the block is the whole table and every ``shard`` wraps to 0 (a
-        graph-sharded mesh is ROADMAP item 9). Returns the position
+        graph-sharded mesh is ROADMAP item 9c). Returns the position
         corrupted."""
         feats = getattr(scorer, "_features_dev", None)
         if feats is not None:

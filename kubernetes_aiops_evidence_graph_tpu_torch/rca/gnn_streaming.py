@@ -163,6 +163,12 @@ class GnnStreamingScorer(StreamingScorer):
                  device: "str | torch.device | None" = None) -> None:
         from ..config import get_settings
         cfg = settings or get_settings()
+        if int(cfg.serve_graph_shards) > 1:
+            raise NotImplementedError(
+                f"serve_graph_shards={cfg.serve_graph_shards} with the "
+                "learned scorer: its graph-sharded tick "
+                "(parallel/sharded_streaming.sharded_gnn_tick) is not "
+                "ported yet: ROADMAP item 9b")
         dev = resolve_device(device)
         self._params = resolve_params(params, cfg, dev)
         # previous (params, generation, source) kept for one swap, so a

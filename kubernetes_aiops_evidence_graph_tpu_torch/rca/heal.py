@@ -8,12 +8,12 @@ host-truth mirrors at snapshot boundaries: silent corruption (the fault
 class the whole-state finite guard can only catch after it serves a wrong
 verdict) is detected and localized to the block that must be repaired.
 One card is one shard (``shards=1``); the fold takes any block count, so
-the sharded layout of ROADMAP item 9 reuses it.
+the sharded layout of ROADMAP item 9c reuses it.
 
 The shard-loss classifier (``ShardHealthTracker``), the reshard plan
 (``plan_reshard``), the survivor mesh (:func:`survivor_mesh`,
 :func:`device_index`) and the shield's live reshard that reads them wait
-for multi-device serving, ROADMAP item 9; the two mesh functions raise
+for multi-device serving, ROADMAP item 9c; the two mesh functions raise
 until then.
 """
 from __future__ import annotations
@@ -22,10 +22,10 @@ import numpy as np
 import torch
 
 _MESH_ITEM = ("multi-device serving (parallel/) is not ported yet: "
-              "ROADMAP item 9")
+              "ROADMAP item 9c")
 
 
-# -- the survivor mesh (ROADMAP item 9) ---------------------------------
+# -- the survivor mesh (ROADMAP item 9c) ---------------------------------
 
 def survivor_mesh(shards: int, exclude: tuple[int, ...] = ()):
     """A ``(1 x shards)`` serving mesh over the survivor devices: a mesh

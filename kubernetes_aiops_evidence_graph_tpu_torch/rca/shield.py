@@ -46,7 +46,7 @@ ops on the scorer's device; the tensors they move are the ones the hand
 kernels read and write. Live resharding of a graph-sharded mesh (the
 JAX package's ``mesh_heal`` ladder rung, its shard classifier, and
 ``mesh_heal``/``reexpand``/``scale_mesh``) waits for multi-device serving,
-ROADMAP item 9: one card serves one shard, and the public methods raise.
+ROADMAP item 9c: one card serves one shard, and the public methods raise.
 """
 from __future__ import annotations
 
@@ -79,12 +79,12 @@ _RETRIABLE_STAGES = frozenset(
 
 # the degradation ladder, in escalation order. A graph-sharded mesh adds
 # a ``mesh_heal`` rung between journal replay and the full rebuild
-# (multi-device serving, ROADMAP item 9)
+# (multi-device serving, ROADMAP item 9c)
 LADDER = ("kernel_fallback", "sync_depth1", "journal_replay",
           "full_rebuild", "rules_fallback")
 
 _MESH_ITEM = ("live resharding of a graph-sharded serving mesh "
-              "(multi-device serving) is not ported yet: ROADMAP item 9")
+              "(multi-device serving) is not ported yet: ROADMAP item 9c")
 
 # one int32 per element: float32 bit for bit, 16-bit floats through int16
 # (sign-extended, truncated back on unpack), small ints and bool widened
@@ -167,6 +167,11 @@ class ShieldedScorer:
 
     def __init__(self, scorer, settings: "Settings | None" = None,
                  directory: "str | None" = None, injector=None) -> None:
+        if getattr(scorer, "mesh", None) is not None:
+            raise NotImplementedError(
+                "a shield around a scorer on a mesh (its snapshot, replay "
+                "and attestation over D blocks) is not ported yet: "
+                "ROADMAP item 9c")
         self.scorer = scorer
         self.settings = settings or get_settings()
         self.injector = injector
@@ -610,7 +615,7 @@ class ShieldedScorer:
             log.error("recovery_failed", error=str(exc))
             return False
 
-    # -- live resharding (multi-device serving, ROADMAP item 9) -------------
+    # -- live resharding (multi-device serving, ROADMAP item 9c) -------------
 
     def mesh_heal(self, positions: tuple[int, ...] = (),
                   exclude_devices: tuple[int, ...] = ()) -> dict:

@@ -115,6 +115,20 @@ def _delta_pack(slab: torch.Tensor, li: int, pk: int, dim: int, gi: int = 0
     return ints, rows, extra
 
 
+def _pack_ints_sharded(f_idx, r_idx, r_cnt, r_ev, r_pair) -> np.ndarray:
+    """[G, L] per-shard packed delta for the graph-sharded tick
+    (parallel/sharded_streaming.sharded_rules_tick): each shard's row is
+    its OWN routed feature-delta indices followed by the (small, [rk])
+    row-delta payload duplicated per shard."""
+    row_payload = np.concatenate(
+        [r_idx, r_cnt, r_ev.ravel(), r_pair.ravel()]).astype(np.int32)
+    g = f_idx.shape[0]
+    return np.concatenate(
+        [f_idx.astype(np.int32, copy=False),
+         np.broadcast_to(row_payload, (g, row_payload.size))],
+        axis=1).astype(np.int32, copy=False)
+
+
 def _compact_delta(s_idx: np.ndarray, s_rows: np.ndarray,
                    idx_out: np.ndarray, rows_out: np.ndarray,
                    sentinel: int) -> int:
@@ -194,6 +208,14 @@ class FeatureStage:
         self._slots = {int(r): j for j, r in enumerate(self._idx[:m])}
         return k - m
 
+    def take(self) -> tuple[np.ndarray, np.ndarray]:
+        """The staged (rows, features) in slot order, copied, and reset."""
+        k = self._n
+        out = (self._idx[:k].copy(), self._rows[:k].copy())
+        self._slots.clear()
+        self._n = 0
+        return out
+
     def drain_into(self, idx_out: np.ndarray, rows_out: np.ndarray,
                    sentinel: int) -> int:
         """Copy the staged columns into the tick's padded delta views
@@ -258,10 +280,28 @@ class StreamingScorer:
     def __init__(self, store: "EvidenceGraphStore | None",
                  settings: Settings | None = None,
                  now_s: float | None = None,
-                 device: "str | torch.device | None" = None) -> None:
+                 device: "str | torch.device | None" = None,
+                 mesh=None, mesh_from_settings: bool = True) -> None:
         self.settings = settings or get_settings()
         self.store = store
+        # optional device mesh (parallel/mesh.Mesh) with a "dp" axis and
+        # maybe a "graph" axis: the resident incident tables split into
+        # dp row blocks and, on a graph axis that the node bucket
+        # divides, the feature table into node blocks, and every tick
+        # runs the mesh tick (parallel/sharded_streaming.py); verdicts
+        # are bit-identical to one device. With settings.serve_graph_shards
+        # > 1, no explicit mesh and ``mesh_from_settings`` (a caller that
+        # resolved the settings' mesh itself, as the worker does, passes
+        # False), the scorer builds its own (1 x D) serving mesh from the
+        # default pool of its device's platform (a short pool is logged).
+        # Its positions may repeat one card but not span several.
+        if mesh is not None and device is None:
+            device = mesh.grid[0, 0]
         self.device = resolve_device(device)
+        from ..parallel.mesh import check_one_card, settings_mesh
+        if mesh is None and mesh_from_settings:
+            mesh = settings_mesh(self.settings, self.device, dp=1)
+        self.mesh = None if mesh is None else check_one_card(mesh)
         # the scorer's own CUDA stream: uploads, in-place deltas, kernel
         # launches and fetches all run on it, in order
         self._stream = (torch.cuda.Stream(self.device)
@@ -451,6 +491,7 @@ class StreamingScorer:
         # within one tick collapses to one entry.
         self._pending_feat = FeatureStage(snap.features.shape[1])
         self._dirty_rows: set[int] = set()
+        self._apply_sharding()
 
     def _upload_tables(self) -> None:
         """Re-ship all evidence tables from host state (caller is on the
@@ -508,10 +549,63 @@ class StreamingScorer:
         id (the multi-tenant pack namespaces it per tenant)."""
         return node_id
 
+    # -- the mesh seams (parallel/) ------------------------------------------
+
+    def _sharded(self, pi: int) -> bool:
+        """True when `pi` incident rows can shard over the mesh's dp axis."""
+        return (self.mesh is not None
+                and pi % self.mesh.shape["dp"] == 0)
+
     def _graph_size(self) -> int:
-        """Graph shards the resident state is split over: 1 on one card
-        (the graph-sharded mesh is ROADMAP item 9)."""
-        return 1
+        if self.mesh is None or "graph" not in self.mesh.axis_names:
+            return 1
+        return self.mesh.shape["graph"]
+
+    def _graph_sharded(self, pn: int, pi: int) -> bool:
+        """True when the mesh carries a real ``graph`` axis AND both the
+        node and incident buckets divide over it: the (dp × graph)
+        serving mode with the features split into node blocks."""
+        g = self._graph_size()
+        return g > 1 and pn % g == 0 and self._sharded(pi)
+
+    def _shardings(self, pn: int | None = None, pi: int | None = None):
+        """(features, [Pi] rows, [Pi, W] tables) placements for state at
+        shape (pn, pi) (default: current). Features split into node
+        blocks over ``graph`` in graph mode and stay whole otherwise;
+        row tables split into row blocks over ``dp``."""
+        from ..parallel.mesh import dp_sharded, graph_sharded, replicated
+        m = self.mesh
+        if pn is None:
+            pn = self.snapshot.padded_nodes
+        if pi is None:
+            pi = self.snapshot.padded_incidents
+        feat = (graph_sharded(m) if self._graph_sharded(pn, pi)
+                else replicated(m))
+        return feat, dp_sharded(m), dp_sharded(m)
+
+    def _apply_sharding(self) -> None:
+        """Place the resident state per the mesh (no-op without one).
+        Called after every (re)build and width growth re-materializes the
+        tables; a tensor already placed stays where it is."""
+        if not self._sharded(self.snapshot.padded_incidents):
+            if self.mesh is not None:
+                # surface the single-device fallback: the operator
+                # configured a mesh but the bucket doesn't divide over it
+                log.warning("mesh_sharding_skipped: padded_incidents=%d "
+                            "dp=%d", self.snapshot.padded_incidents,
+                            self.mesh.shape["dp"])
+            return
+        from ..parallel.compat import place
+        feat, row1, row2 = self._shardings()
+        with self._on_stream():
+            for name, placement in (("_features_dev", feat),
+                                    ("_ev_idx_dev", row2),
+                                    ("_ev_cnt_dev", row1),
+                                    ("_pair_dev", row2),
+                                    ("_chain0", row1)):
+                t = getattr(self, name)
+                if isinstance(t, torch.Tensor):
+                    setattr(self, name, place(t, placement))
 
     def _set_pod_node(self, pod: int, node: int) -> None:
         """Point `pod` at `node`, keeping the reverse index coherent."""
@@ -627,6 +721,7 @@ class StreamingScorer:
         with self._on_stream():
             self._upload_tables()
         self._dirty_rows.clear()
+        self._apply_sharding()
 
     def _grow_pair_width(self) -> None:
         """Pair bucket overflow: bump the bucket and re-stamp sentinels.
@@ -642,6 +737,7 @@ class StreamingScorer:
         with self._on_stream():
             self._pair_dev = self._upload(
                 self._materialize_pairs(range(self.snapshot.padded_incidents)))
+        self._apply_sharding()
 
     def _rebuild(self) -> None:
         self.rebuilds += 1
@@ -964,6 +1060,69 @@ class StreamingScorer:
             r_ev[:k], r_cnt[:k], r_pair[:k] = ev_idx, ev_cnt, ev_pair
         return r_idx, r_ev, r_cnt, r_pair
 
+    def _pending_feature_delta_sharded(self, shards: int
+                                       ) -> tuple[np.ndarray, np.ndarray,
+                                                  list[int]]:
+        """Route the staged feature rows to their owner shards with
+        per-shard ``_DELTA_BUCKETS`` sub-buckets: ([D, pk] shard-local
+        indices, [D, pk, DIM] rows, live rows per shard). The delta width
+        follows the MAX per-shard count, and each shard's rows keep
+        their staging order (store-journal order: the router must not
+        reorder). Drains the stage."""
+        from ..parallel.sharded_streaming import route_node_delta
+        nps = self.snapshot.padded_nodes // shards
+        rows_idx, rows = self._pending_feat.take()
+        idx, per_shard, pk = route_node_delta(
+            [(int(r), j) for j, r in enumerate(rows_idx)], nps, shards,
+            _DELTA_BUCKETS)
+        out = np.zeros((shards, pk, self.snapshot.features.shape[1]),
+                       np.float32)
+        for g, ents in enumerate(per_shard):
+            if ents:
+                out[g, :len(ents)] = rows[[j for _r, j in ents]]
+        return idx, out, [len(e) for e in per_shard]
+
+    def _pending_feat_bound(self) -> int:
+        """Pending feature-delta entries as the tick will see them: the
+        max per-shard count in graph-sharded mode (per-shard sub-buckets
+        bound the coalescing ladder per shard), the total otherwise."""
+        g = self._graph_size()
+        if g > 1 and self._graph_sharded(self.snapshot.padded_nodes,
+                                         self.snapshot.padded_incidents):
+            nps = self.snapshot.padded_nodes // g
+            counts = np.bincount(
+                np.asarray(self._pending_feat.keys(), np.int64) // nps,
+                minlength=g)
+            return int(counts.max(initial=0))
+        return len(self._pending_feat)
+
+    def _staged_delta_sharded(self, shards: int):
+        """The mesh tick's staged delta in ONE int32 slab, uploaded once
+        per device: ``[ints: D x L | rows: D x pk x DIM as int32]`` with
+        each shard's ``ints`` row its own routed feature-delta indices
+        (shard-local) followed by the row-delta payload, the same for
+        every shard (``_pack_ints_sharded``). Returns ``(slab, f_idx [D,
+        pk] view, f_rows [D, pk, DIM] view, li, pk, rk, f_live per shard,
+        r_idx)``."""
+        dim = self.snapshot.features.shape[1]
+        f_idx, f_rows, f_live = self._pending_feature_delta_sharded(shards)
+        pk = f_idx.shape[1]
+        r_idx, r_ev, r_cnt, r_pair = self._pending_row_delta()
+        rk = len(r_idx)
+        ints = _pack_ints_sharded(f_idx, r_idx, r_cnt, r_ev, r_pair)
+        li = ints.shape[1]
+        slab = self._stage_pool.acquire(shards * li + shards * pk * dim)
+        buf = slab.view
+        buf[:shards * li] = ints.ravel()
+        rows_view = buf[shards * li:].view(np.float32).reshape(
+            shards, pk, dim)
+        rows_view[...] = f_rows
+        k = sum(f_live)
+        obs_metrics.INGEST_BATCH_FILL.set(k / max(pk * shards, 1),
+                                          site="delta")
+        return (slab, buf[:shards * li].reshape(shards, li)[:, :pk],
+                rows_view, li, pk, rk, f_live, r_idx)
+
     def _staged_extra_ints(self) -> "np.ndarray | None":
         """Extra int32 payload a subclass wants folded into the staged slab
         (the GNN scorer rides its packed aux/edge delta on the base slab's
@@ -1027,7 +1186,20 @@ class StreamingScorer:
             span.coalesced = self._scope_coalesced_since
             span.params_gen = self.params_generation
             self._scope_coalesced_since = 0
-        slab, f_rows, li, pk, rk, gi, f_live, r_live = self._staged_delta()
+        pn, pi = self.snapshot.padded_nodes, self.snapshot.padded_incidents
+        on_mesh = self._sharded(pi)
+        graph_sharded = self._graph_sharded(pn, pi)
+        if on_mesh:
+            # the mesh tick: feature rows routed to their owner shards
+            # (one shard unless the features are split over graph)
+            shards = self._graph_size() if graph_sharded else 1
+            (slab, f_idx, f_rows, li, pk, rk, f_live,
+             r_idx) = self._staged_delta_sharded(shards)
+            gi = 0
+        else:
+            slab, f_rows, li, pk, rk, gi, f_live, r_live = \
+                self._staged_delta()
+            f_idx = slab.view[:pk]
         if span is not None:
             span.mark("pack")
         # fault seams: value poisoning lands on the STAGED rows inside the
@@ -1038,39 +1210,55 @@ class StreamingScorer:
         poisoned = self._fault_value("delta_values", f_rows)
         if poisoned is not f_rows:
             f_rows[...] = poisoned
-        f_idx = slab.view[:pk]
         s_idx, s_rows = self._screen_delta(f_idx, f_rows, span)
         if s_idx is not f_idx:
             # the screen dropped rows (index set to the out-of-range
             # sentinel): the tick copies a live prefix, so compact it
-            f_live = _compact_delta(s_idx, s_rows, f_idx, f_rows,
-                                    self.snapshot.padded_nodes)
+            if on_mesh:
+                nps = pn // shards
+                f_live = [_compact_delta(s_idx[g], s_rows[g], f_idx[g],
+                                         f_rows[g], nps)
+                          for g in range(shards)]
+            else:
+                f_live = _compact_delta(s_idx, s_rows, f_idx, f_rows, pn)
         self._fault_point("dispatch")
         self._fault_point("pack")
         dim = self.snapshot.features.shape[1]
         with self._on_stream():
-            slab_dev = slab.host.to(self.device, non_blocking=True)
+            if on_mesh:
+                # one upload of the slab per device of the mesh
+                slabs = {d: slab.host.to(d, non_blocking=True)
+                         for d in dict.fromkeys(self.mesh.devices.ravel())}
+                self._staged_gnn_dev = None
+            else:
+                slab_dev = slab.host.to(self.device, non_blocking=True)
+                ints, rows, self._staged_gnn_dev = _delta_pack(
+                    slab_dev, li, pk, dim, gi)
             slab.done = self._record()
-            ints, rows, self._staged_gnn_dev = _delta_pack(slab_dev, li, pk,
-                                                           dim, gi)
             if span is not None:
                 span.mark("staging")
                 # roofline drift: price THIS tick at its padded shapes,
                 # once per shape key
-                self._scope_key = (self.snapshot.padded_nodes,
-                                   self.snapshot.padded_incidents,
-                                   self.width, self.pair_width, pk, rk)
-                self._scope_entry = "streaming.rules_tick"
-                obs_scope.ROOFLINE.model(
-                    self._scope_entry, self._scope_key,
-                    lambda: {"pn": self.snapshot.padded_nodes,
-                             "pi": self.snapshot.padded_incidents,
-                             "width": self.width, "pk": pk, "rk": rk,
-                             "dim": dim},
-                    pack=self._scope_pack)
-            out = _tick(self._features_dev, ints, rows, self._ev_idx_dev,
-                        self._ev_cnt_dev, self._pair_dev, self._chain0,
-                        self.pair_width, pk, rk, self.width, f_live, r_live)
+                self._scope_key = (pn, pi, self.width, self.pair_width, pk,
+                                   rk) + ((shards,) if graph_sharded else ())
+                self._scope_entry = self._scope_entrypoint(graph_sharded)
+                shapes = {"pn": pn, "pi": pi, "width": self.width,
+                          "pk": pk, "rk": rk, "dim": dim}
+                if graph_sharded:
+                    shapes.update(shards=shards, pair_width=self.pair_width)
+                obs_scope.ROOFLINE.model(self._scope_entry, self._scope_key,
+                                         lambda: shapes,
+                                         pack=self._scope_pack)
+            if on_mesh:
+                out = self._mesh_tick(graph_sharded, shards, pk, rk)(
+                    self._features_dev, slabs, self._ev_idx_dev,
+                    self._ev_cnt_dev, self._pair_dev, self._chain0, f_live,
+                    self._row_spans(r_idx))
+            else:
+                out = _tick(self._features_dev, ints, rows,
+                            self._ev_idx_dev, self._ev_cnt_dev,
+                            self._pair_dev, self._chain0, self.pair_width,
+                            pk, rk, self.width, f_live, r_live)
         # a device error mid-pipeline: the resident tensors were already
         # updated in place and may be poisoned; then a fault localized to
         # one shard of the resident state
@@ -1087,6 +1275,36 @@ class StreamingScorer:
             span.tenants = self._tenant_count()
             span.mark("dispatch")
         return out
+
+    def _scope_entrypoint(self, sharded: bool) -> str:
+        return ("streaming.rules_tick.sharded" if sharded
+                else "streaming.rules_tick")
+
+    def _mesh_tick(self, graph_sharded: bool, shards: int, pk: int,
+                   rk: int):
+        """The mesh tick for the current shapes: the owner fold with one
+        sum over ``graph`` when the features are split into node blocks,
+        the whole fold on each dp position otherwise
+        (parallel/sharded_streaming.py)."""
+        from ..parallel.sharded_streaming import (dp_rules_tick,
+                                                  sharded_rules_tick)
+        pn, pi = self.snapshot.padded_nodes, self.snapshot.padded_incidents
+        rows = pi // self.mesh.shape["dp"]
+        if graph_sharded:
+            return sharded_rules_tick(self.mesh, pn // shards, rows,
+                                      self.pair_width, pk, rk, self.width)
+        return dp_rules_tick(self.mesh, rows, self.pair_width, pk, rk,
+                             self.width)
+
+    def _row_spans(self, r_idx: np.ndarray) -> list[tuple[int, int]]:
+        """Each dp block's span ``[a, b)`` of the row delta's live prefix
+        (its rows are ascending, so a block's rows are contiguous)."""
+        pi = self.snapshot.padded_incidents
+        live = r_idx[r_idx < pi]
+        rows = pi // self.mesh.shape["dp"]
+        bounds = np.searchsorted(live, np.arange(self.mesh.shape["dp"] + 1)
+                                 * rows)
+        return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
 
     def _screen_delta(self, f_idx: np.ndarray, f_rows: np.ndarray,
                       span) -> tuple[np.ndarray, np.ndarray]:
@@ -1249,8 +1467,10 @@ class StreamingScorer:
         self.scope.finalize(sp)
 
     def _pending_delta_count(self) -> int:
-        """Host-side delta entries a coalesced tick would carry."""
-        return len(self._pending_feat) + len(self._dirty_rows)
+        """Host-side delta entries a coalesced tick would carry, as the
+        tick will see them (bounds the merge against the delta ladder:
+        per shard in graph-sharded mode)."""
+        return self._pending_feat_bound() + len(self._dirty_rows)
 
     def tick_async(self) -> dict:
         """Pipelined tick submission for streaming drivers: flush pending

@@ -31,8 +31,10 @@ attach to: a FLEET of packs on one device, tenants bin-packed onto them by
 load, with live migration between packs journaled in a small fleet WAL.
 
 Not ported on purpose (ROADMAP §A): the warm-growth shapes and warm
-threads (a hand kernel compiles once). The graph-sharded resident state
-is ROADMAP item 9: on one card a pack is never graph-sharded.
+threads (a hand kernel compiles once). With ``serve_graph_shards`` above
+1 a pack's resident state lies on a mesh like a single scorer's
+(``parallel/sharded_streaming.py``), and ``_screen_delta`` screens the
+routed ``[G, pk]`` delta.
 """
 from __future__ import annotations
 
@@ -108,7 +110,8 @@ class MultiTenantScorer(StreamingScorer):
     def __init__(self, stores: "Mapping[str, EvidenceGraphStore] | Iterable[tuple[str, EvidenceGraphStore]]",
                  settings: Settings | None = None,
                  now_s: float | None = None,
-                 device: "str | torch.device | None" = None) -> None:
+                 device: "str | torch.device | None" = None,
+                 mesh=None) -> None:
         items = dict(stores)
         if not items:
             raise ValueError("MultiTenantScorer needs at least one tenant")
@@ -117,7 +120,7 @@ class MultiTenantScorer(StreamingScorer):
         self.partial_repacks = 0
         self.quarantines = 0
         super().__init__(store=None, settings=settings, now_s=now_s,
-                         device=device)
+                         device=device, mesh=mesh)
 
     # -- identity / region seams ------------------------------------------
 
@@ -210,6 +213,7 @@ class MultiTenantScorer(StreamingScorer):
         self._pending_feat = FeatureStage(self.snapshot.features.shape[1])
         self._dirty_rows = set()
         self._synced_seq = 0   # unused by the pack (per-region cursors)
+        self._apply_sharding()
 
     def _init_from_store(self) -> None:
         """Tensorize EVERY tenant store and pack the per-tenant snapshots
@@ -604,19 +608,26 @@ class MultiTenantScorer(StreamingScorer):
         finite = np.isfinite(f_rows).all(axis=-1)
         if finite.all():
             return f_idx, f_rows
-        if f_idx.ndim != 1:
-            raise NotImplementedError(
-                "a graph-sharded pack delta is ROADMAP item 9")
         f_idx = np.array(f_idx, copy=True)
         f_rows = np.array(f_rows, copy=True)
         pn = self.snapshot.padded_nodes
         poisoned: set[str] = set()
-        for (j,) in np.argwhere(~finite):
-            row = int(f_idx[j])
-            if row < pn:
-                poisoned.add(self._region_of_node_row(row).name)
-            f_idx[j] = pn
-            f_rows[j] = 0.0
+        if f_idx.ndim == 2:   # graph-sharded: [G, pk] shard-LOCAL indices
+            nps = pn // f_idx.shape[0]
+            for gi, j in np.argwhere(~finite):
+                local = int(f_idx[gi, j])
+                if local < nps:
+                    poisoned.add(self._region_of_node_row(
+                        gi * nps + local).name)
+                f_idx[gi, j] = nps
+                f_rows[gi, j] = 0.0
+        else:
+            for (j,) in np.argwhere(~finite):
+                row = int(f_idx[j])
+                if row < pn:
+                    poisoned.add(self._region_of_node_row(row).name)
+                f_idx[j] = pn
+                f_rows[j] = 0.0
         for t in sorted(poisoned):
             self.quarantine(t, "nonfinite_delta")
         if span is not None and poisoned:

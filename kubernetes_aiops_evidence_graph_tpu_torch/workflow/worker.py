@@ -15,7 +15,9 @@ The port's copy serves from the port's scorers on the worker's device
 (``device=None`` is the CUDA device and raises without one; the tests
 pass ``"cpu"``), wrapped in the crash shield (``rca/shield.py``) when
 ``shield_enabled``, or from a tenant's pack of a shared multi-tenant
-``rca/surge.SurgeServer`` (rules backend only). It starts no warm thread:
+``rca/surge.SurgeServer`` (rules backend only). With ``mesh_dp`` or
+``serve_graph_shards`` above 1 the rules scorer serves on a mesh built
+from the device's pool (``_serving_mesh``). It starts no warm thread:
 a hand kernel compiles once, so the JAX package's warm paths have no
 counterpart. Settings whose backing module is not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item (``check_ported``).
@@ -59,12 +61,24 @@ def _incident_from_row(row: dict) -> Incident:
 def check_ported(settings: Settings) -> None:
     """Raise ``NotImplementedError`` for a setting whose backing module
     the port does not have yet, naming its ROADMAP item; nothing falls
-    back silently. All of these are off by default."""
-    if int(settings.mesh_dp) > 1 or int(settings.serve_graph_shards) > 1:
+    back silently. All of these are off by default. The rules backend
+    serves on a mesh (``mesh_dp``, ``serve_graph_shards``; item 9a); the
+    learned scorer's mesh is item 9b, the shield's and the elastic
+    controller's item 9c."""
+    if int(settings.mesh_dp) <= 1 and int(settings.serve_graph_shards) <= 1:
+        return
+    where = (f"mesh_dp={settings.mesh_dp}, serve_graph_shards="
+             f"{settings.serve_graph_shards}")
+    if settings.rca_backend == "gnn":
         raise NotImplementedError(
-            f"mesh_dp={settings.mesh_dp}, serve_graph_shards="
-            f"{settings.serve_graph_shards}: multi-device serving "
-            "(parallel/) is not ported yet: ROADMAP item 9")
+            f"{where} with rca_backend='gnn': the learned scorer's mesh "
+            "(parallel/sharded_gnn.py) is not ported yet: ROADMAP item 9b")
+    if settings.shield_enabled or settings.elastic_enabled:
+        raise NotImplementedError(
+            f"{where} with shield_enabled={settings.shield_enabled}, "
+            f"elastic_enabled={settings.elastic_enabled}: the shield and "
+            "the elastic controller on a mesh are not ported yet: "
+            "ROADMAP item 9c")
 
 
 class IncidentWorker:
@@ -151,7 +165,8 @@ class IncidentWorker:
                     from ..rca.streaming import StreamingScorer
                     scorer = StreamingScorer(
                         self.builder.store, self.settings,
-                        device=self.device)
+                        device=self.device, mesh=self._serving_mesh(),
+                        mesh_from_settings=False)
                 if self.settings.shield_enabled:
                     # the crash-consistent recovery layer: on acquisition
                     # either restore a compatible on-disk snapshot+journal
@@ -191,6 +206,14 @@ class IncidentWorker:
             from ..rca.streaming import StreamingScorer
             return StreamingScorer(self.builder.store, self.settings,
                                    device=self.device)
+
+    def _serving_mesh(self):
+        """The mesh ``settings.mesh_dp`` and ``settings.serve_graph_shards``
+        ask for, from the default pool of the worker's device's platform
+        (``parallel/mesh.settings_mesh``); None = single-device serving
+        (logged when the pool is short)."""
+        from ..parallel.mesh import settings_mesh
+        return settings_mesh(self.settings, self.device)
 
     async def submit(self, incident: Incident) -> None:
         await self.queue.put(incident)

@@ -38,7 +38,12 @@ def test_every_port_module_imports_without_jax_orbax_pydantic_yaml():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert {'kubernetes_aiops_evidence_graph_tpu_torch.rca.surge',\n"
-        "        'kubernetes_aiops_evidence_graph_tpu_torch.rca.elastic'} <= set(names)\n"
+        "        'kubernetes_aiops_evidence_graph_tpu_torch.rca.elastic',\n"
+        "        'kubernetes_aiops_evidence_graph_tpu_torch.native',\n"
+        "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.mesh',\n"
+        "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.compat',\n"
+        "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.sharded_rules',\n"
+        "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.sharded_streaming'} <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [k for k in sys.modules if k == {JAX_PKG!r} or k.startswith({JAX_PKG + '.'!r})]\n"
         "assert not bad, bad\n"

@@ -151,13 +151,27 @@ def test_add_and_remove_tenant_keep_the_others_bits():
 
 
 def test_graph_sharded_pack_delta_names_item_9():
-    """On one card a pack's delta is never graph-sharded: a [G, pk]
-    index block, which only item 9's sharded tick stages, raises naming
-    the item instead of being screened on a path that does not exist."""
-    mt = _packs([52, 53])[W.PORT_PKG][0]
-    mt.finite_delta_guard = True
+    """Item 9a landed: a graph-sharded pack's routed ``[G, pk]`` delta
+    (shard-local indices) is screened as JAX rca/surge.py:628-660 screens
+    it: the poisoned row dropped to the shard's sentinel and zeroed, its
+    tenant quarantined, the other shard's rows kept."""
+    packs = _packs([52, 53])
+    mt, jmt = packs[W.PORT_PKG][0], packs[W.JAX_PKG][0]
     rows = np.zeros((2, 4, mt.snapshot.features.shape[1]), np.float32)
     rows[1, 2, 0] = np.inf
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mt._screen_delta(np.zeros((2, 4), np.int32), rows, None)
+    nps = mt.snapshot.padded_nodes // 2
+    idx = np.full((2, 4), nps, np.int32)
+    idx[0, 0], idx[1, 2] = 3, 5
+    for m in (mt, jmt):
+        m.finite_delta_guard = True
+    s_idx, s_rows = mt._screen_delta(idx, rows, None)
+    j_idx, j_rows = jmt._screen_delta(idx, rows, None)
+    np.testing.assert_array_equal(s_idx, j_idx)
+    np.testing.assert_array_equal(s_rows, j_rows)
+    assert s_idx[0, 0] == 3 and s_idx[1, 2] == nps
+    assert np.isfinite(s_rows).all() and not s_rows[1, 2].any()
+    owner = mt._region_of_node_row(nps + 5).name
+    assert mt.regions[owner].quarantined
+    assert [r.name for r in mt._regions_order if r.quarantined] == [
+        r.name for r in jmt._regions_order if r.quarantined] == [owner]
     assert mt._graph_size() == 1

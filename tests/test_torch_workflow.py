@@ -241,6 +241,24 @@ def test_worker_serving_scorer_is_the_ports(backend, cls):
 def test_unported_settings_raise_and_name_their_item(override, item):
     db = t_storage.Database(":memory:")
     _DBS.append(db)
+    if override in (dict(mesh_dp=2), dict(serve_graph_shards=2)):
+        # item 9a landed: the rules backend serves on a mesh of the
+        # pool's positions (tests/test_torch_sharded_streaming.py)
+        from kubernetes_aiops_evidence_graph_tpu_torch.parallel import (
+            mesh as pmesh)
+        pool = dict(pmesh._HOST_POOL)
+        pmesh._HOST_POOL.update(devices=2, committed=False)
+        try:
+            worker = t_workflow.IncidentWorker(
+                _cluster(), db, settings=T.settings(**override),
+                device="cpu")
+            assert worker.serving_scorer().mesh.size == 2
+            t_app.AiopsApp(_cluster(), T.settings(**override), db=db,
+                           device="cpu")
+        finally:
+            pmesh._HOST_POOL.clear()
+            pmesh._HOST_POOL.update(pool)
+        return
     if override == "surge":
         # item 7 landed: a surge fleet is taken, not refused
         from kubernetes_aiops_evidence_graph_tpu_torch.rca.surge import (
