@@ -241,7 +241,25 @@ the learned model's training, offline (``rca/train.py``) and online
    ``rescore()`` bit-equal, each entry's launches counted against the
    passes; four config-4 tenants on a pack over a (1 x 2) mesh bit-equal
    to their single scorers; a ``{"mesh": {...}}`` line;
-20. prints a ``{"gms_compare": {...}}`` line (the message pass split by
+20. the learned scorer on meshes (ROADMAP item 9b), every position on
+   the card: (a) the config-4 learned churn (2,000 events in ticks of
+   100, the shipped checkpoint) through a D = 1 scorer and scorers on
+   (1 x 2) (depths 2 and 1, and with ``gnn_fused_tick``) and (1 x 4)
+   serving meshes on one store (``run_mesh_learned``): a fresh mirror
+   bit-equal to D = 1, every ``rescore()`` with D = 1's verdicts and
+   probs within rtol 2e-4 / atol 1e-6, the depth and fused twins
+   bit-equal, each tick's launches held (B2 3·D, B1's partial D and tail
+   1, 4·D ring hops; no B3 or B4), B2 at (Pn/D, Pe_shard) against its
+   plain version and timed beside its bound; (b) the sharded train step
+   at config 3 on (1 x 2), (2 x 2) and (1 x 4) meshes, both halos
+   (``run_mesh_train``): the loss within 1e-4 of the single-device
+   loss, ring against all-gather, two runs bit-equal, launches and
+   device ms a step, the ring's grads against the plain message pass
+   and ``grad_w`` at a ring step against its plain version; (c) one
+   ``OnlineLearner.run_once()`` with ``learn_mesh_shards`` 2 on the
+   config-4 world (``run_mesh_learner``); a ``{"mesh_learned": {...}}``
+   line;
+21. prints a ``{"gms_compare": {...}}`` line (the message pass split by
    kernel at config 3, forward and dh, and config 4; the hub probe; the
    learned forward, the train step, the ticks per tier, each split by
    kernel, and learned events/s; ``grad_w`` per launch at the trainer's
@@ -2163,21 +2181,16 @@ def learn_counters() -> dict:
                                    m.LEARN_EPISODES_HARVESTED._values.items()}}
 
 
-def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
-                       seed: int = 0) -> dict:
-    """OnlineLearner.run_once() on the config-4 world: a resident learned
-    scorer on the card serving weak (random, full-width) params; a durable
-    store with rules-tier hypotheses and operator feedback confirming each
-    injected incident's scenario rule; harvest, learn_steps fine-tune
-    steps over the config-4 episode and the simulator mix, the gate, and
-    after a swap the scorer holding the candidate's leaves, and the next
-    tick on generation 1 equal to a fresh forward with the candidate
-    (1e-5)."""
+def learner_world(dev, num_pods: int, num_incidents: int, seed: int,
+                  **over):
+    """The online learner's config-4 world: a resident learned scorer on
+    the card serving weak (random, full-width) params; a durable store
+    with rules-tier hypotheses and operator feedback confirming each
+    injected incident's scenario rule; the learner over both (settings
+    ``over`` on top). Returns (settings, builder, now_s, scorer,
+    learner)."""
     import torch
-    from kubernetes_aiops_evidence_graph_tpu_torch.graph.snapshot import (
-        build_snapshot)
-    from kubernetes_aiops_evidence_graph_tpu_torch.learn import (
-        OnlineLearner, trainer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.learn import OnlineLearner
     from kubernetes_aiops_evidence_graph_tpu_torch.models import (
         Hypothesis, HypothesisCategory, HypothesisFeedback, HypothesisSource)
     from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
@@ -2188,7 +2201,7 @@ def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
     settings, cluster, builder, injected = streaming_world(
         num_pods, num_incidents, seed)
     settings = dataclasses.replace(settings, learn_min_episodes=1,
-                                   learn_holdout_every=0)
+                                   learn_holdout_every=0, **over)
     now_s = cluster.now.timestamp()
     weak = gnn.init_params(torch.Generator().manual_seed(123), device=dev)
     scorer = GnnStreamingScorer(builder.store, settings, params=weak,
@@ -2207,6 +2220,23 @@ def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
         db.insert_feedback(HypothesisFeedback(
             hypothesis_id=h.id, was_correct=True, submitted_by="operator"))
     learner = OnlineLearner(db, [scorer], settings=settings, now_s=now_s)
+    return settings, builder, now_s, scorer, learner
+
+
+def run_online_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
+                       seed: int = 0) -> dict:
+    """OnlineLearner.run_once() on the config-4 world (``learner_world``):
+    harvest, learn_steps fine-tune steps over the config-4 episode and the
+    simulator mix, the gate, and after a swap the scorer holding the
+    candidate's leaves, and the next tick on generation 1 equal to a fresh
+    forward with the candidate (1e-5)."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph.snapshot import (
+        build_snapshot)
+    from kubernetes_aiops_evidence_graph_tpu_torch.learn import trainer
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    settings, builder, now_s, scorer, learner = learner_world(
+        dev, num_pods, num_incidents, seed)
     tune_s, candidates = [], []
     train_candidate = learner.train_candidate
 
@@ -4851,6 +4881,365 @@ def run_mesh(dev, snapshot, c3_backend, num_pods: int = 10_000,
             "phase_s": time.perf_counter() - t_phase}
 
 
+# -- phase 20: the learned scorer on a mesh (ROADMAP item 9b) ---------------
+
+MESH_LEARNED_SHARDS = (2, 4)
+"""serve_graph_shards of phase 20's config-4 learned churn."""
+MESH_TRAIN_SHAPES = {"1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
+"""Phase 20's training meshes, (dp, graph), every position on the card."""
+
+
+def learned_counts() -> dict:
+    """Every kernel's launches, B1's two split entries and the ring's
+    hops (``parallel/compat.ring_hops``)."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel import compat
+    return {**read_counts(), **split_counts(), "ring_hops": compat.ring_hops}
+
+
+def learned_tick_launches(d: int, layers: int, ticks: int) -> dict:
+    """What ``ticks`` learned ticks launch: at D = 1 the composed tick (B2
+    once a layer, B1 once); on a (1 x D) mesh B2 ``layers * D`` times,
+    B1's partial fold D times and its tail once, and ``(layers + 1) * D``
+    ring hops, a tick."""
+    zero = {"rules_fold": 0, "gms": 0, "fused_tick": 0, "fused_tick_dma": 0,
+            "grad_w": 0, "rules_fold_partial": 0, "rules_tail": 0,
+            "ring_hops": 0}
+    if d == 1:
+        return {**zero, "gms": layers * ticks, "rules_fold": ticks}
+    return {**zero, "gms": layers * d * ticks, "rules_fold_partial": d * ticks,
+            "rules_tail": ticks, "ring_hops": (layers + 1) * d * ticks}
+
+
+def close_learned_verdicts(mine: dict, ref: dict, what: str) -> int:
+    """Raise unless top-1 and any_match are equal and the probs within
+    rtol 2e-4 / atol 1e-6, by incident id (the D = 1 contract of a
+    sharded learned scorer under churn). Returns the incident count."""
+    a = {iid: i for i, iid in enumerate(mine["incident_ids"])}
+    b = {iid: i for i, iid in enumerate(ref["incident_ids"])}
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: live incident sets differ")
+    ia, ib = [a[i] for i in a], [b[i] for i in a]
+    for k in ("top_rule_index", "any_match"):
+        if not np.array_equal(np.asarray(mine[k])[ia], np.asarray(ref[k])[ib]):
+            raise AssertionError(f"{what}: {k} differs from D = 1")
+    p, q = np.asarray(mine["probs"])[ia], np.asarray(ref["probs"])[ib]
+    if not np.allclose(p, q, rtol=2e-4, atol=1e-6):
+        raise AssertionError(f"{what}: probs differ from D = 1 (max |d| "
+                             f"{float(np.abs(p - q).max())})")
+    return len(a)
+
+
+def sharded_gms_args(scorer, g: int = 0) -> tuple:
+    """(rows, w_rel, iota, dst, mask) of B2 at graph position ``g`` of a
+    sharded learned scorer, as its tick's first layer gives them: the
+    ``[Pe_shard, H]`` source rows the ring assembles (the layer-0 table
+    gathered at the region's global sources), the region's local dst
+    and mask."""
+    import torch
+    blocks = lambda t: torch.cat(list(t.blocks[0]))   # noqa: E731
+    torch.cuda.synchronize()
+    h = node_table(scorer._params, blocks(scorer._features_dev),
+                   blocks(scorer._kind_dev), blocks(scorer._nmask_dev))
+    esrc = scorer._esrc_dev.blocks[0, g]
+    iota = torch.arange(esrc.shape[0], dtype=torch.int32, device=esrc.device)
+    return (h[esrc.long()], scorer._params["layers"][0]["w_rel"], iota,
+            scorer._edst_dev.blocks[0, g].clone(),
+            scorer._emask_dev.blocks[0, g].clone())
+
+
+def run_mesh_learned(dev, num_pods: int = 10_000, num_incidents: int = 100,
+                     events: int = 2000, batch_size: int = 100,
+                     rescore_every: int = 5, seed: int = 0) -> dict:
+    """Phase 20 (a): the learned scorer serving config 4 on (1 x 2) and
+    (1 x 4) meshes of positions on the card, beside a D = 1 scorer on the
+    same store, from the shipped checkpoint: a fresh mirror's probs equal
+    D = 1's bit for bit; ``events`` full-mix events in ticks of
+    ``batch_size`` (``tick_async``), a ``rescore()`` every
+    ``rescore_every`` ticks and at the end with top-1 and any_match equal
+    to D = 1 and probs within rtol 2e-4 / atol 1e-6; D = 2 at depths 1 and
+    2 bit-equal, and with ``gnn_fused_tick`` bit-equal with no B3 or B4
+    launch; every tick's launches (``learned_tick_launches``) held per
+    scorer; B2 at (Pn/D, Pe_shard) against its plain version and timed
+    beside its bound."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel import (
+        serving_mesh)
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel.compat import (
+        Sharded)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
+        GnnStreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        churn_events, store_step)
+    t_phase = time.perf_counter()
+    settings, cluster, builder, _ = streaming_world(num_pods, num_incidents,
+                                                    seed)
+    store = builder.store
+    now_s = cluster.now.timestamp()
+    params = shipped_params(dev)
+    layers = len(params["layers"])
+
+    def make(d, **over):
+        mesh = (None if d == 1 else
+                serving_mesh(d, devices=[dev] * d, strict=True))
+        return GnnStreamingScorer(store, dataclasses.replace(settings, **over),
+                                  params=params, now_s=now_s, device=dev,
+                                  mesh=mesh, mesh_from_settings=False)
+    t0 = time.perf_counter()
+    scorers = {"D1": (1, make(1)), "D2": (2, make(2)),
+               "D2_depth1": (2, make(2, serve_pipeline_depth=1)),
+               "D2_fused": (2, make(2, gnn_fused_tick=True)),
+               "D4": (4, make(4))}
+    build_s = time.perf_counter() - t0
+    for name, (d, s) in scorers.items():
+        if d > 1 and not (s._mirror_sharded and isinstance(s._esrc_dev, Sharded)
+                          and s._esrc_dev.blocks.shape == (1, d)):
+            raise AssertionError(f"{name}: the mirror is not {d} regions")
+    launches = {k: 0 for k in learned_counts()}
+    host_s: dict[str, list] = {name: [] for name in scorers}
+
+    def counted(name, fn):
+        d, s = scorers[name]
+        c0, p0 = learned_counts(), s.dispatches
+        out = fn()
+        got = count_delta(c0, learned_counts())
+        want = learned_tick_launches(d, layers, s.dispatches - p0)
+        if got != want:
+            raise AssertionError(f"{name}: launches {got} for "
+                                 f"{s.dispatches - p0} ticks, expected {want}")
+        for k, n in got.items():
+            launches[k] += n
+        return out
+
+    def rescore_all(what):
+        outs = {name: counted(name, s.rescore)
+                for name, (_, s) in scorers.items()}
+        ref = outs["D1"]
+        for name in ("D2", "D4"):
+            close_learned_verdicts(outs[name], ref, f"{what}: {name}")
+        for name in ("D2_depth1", "D2_fused"):
+            bit_equal_verdicts(outs[name], outs["D2"], f"{what}: {name}")
+        return outs
+
+    reset_counts()
+    fresh = rescore_all("fresh mirror")
+    for name in ("D2", "D4"):
+        bit_equal_verdicts(fresh[name], fresh["D1"],
+                           f"fresh mirror: {name} vs D = 1")
+    stream = list(churn_events(cluster, events, seed=seed + 1,
+                               incident_ids=tuple(store.incident_ids())))
+    ticks = checked = 0
+    for start in range(0, len(stream), batch_size):
+        for ev in stream[start:start + batch_size]:
+            store_step(cluster, store, ev)
+        ticks += 1
+        order = list(scorers) if ticks % 2 else list(scorers)[::-1]
+        for name in order:
+            s = scorers[name][1]
+            t = time.perf_counter()
+            counted(name, lambda: (s.sync(), s.tick_async()))
+            host_s[name].append(time.perf_counter() - t)
+        if ticks % rescore_every == 0 or start + batch_size >= len(stream):
+            final = rescore_all(f"after tick {ticks}")
+            checked += 1
+    torch.cuda.synchronize()
+    if launches["fused_tick"] or launches["fused_tick_dma"]:
+        raise AssertionError(f"B3/B4 launched on a sharded mirror: {launches}")
+    for name in ("D1", "D2", "D4"):
+        ids = sorted(final[name]["incident_ids"])
+        row = {iid: i for i, iid in enumerate(final[name]["incident_ids"])}
+        digest(f"mesh_learned_{name}_final_probs", torch.from_numpy(
+            np.ascontiguousarray(final[name]["probs"][[row[i] for i in ids]])))
+    err = 0.0
+    b2 = {}
+    for d in MESH_LEARNED_SHARDS:
+        s = scorers[f"D{d}"][1]
+        nps = s.snapshot.padded_nodes // d
+        args = sharded_gms_args(s)
+        err = max(err, gms_check(args, s._rel_offsets, nps,
+                                 f"B2 at (Pn/D, Pe_shard), D={d}"))
+        t = gms_timing(args, s._rel_offsets, nps)
+        b2[f"D{d}"] = {"nps": nps, "pe_shard": s._pe_shard,
+                       **{k: t[k] for k in (
+                           "ms", "plain_ms", "bound_ms", "bound_by",
+                           "bound_bytes", "bound_ops", "ms_per_call",
+                           "plan_ms", "ms_by_kernel", "timed_by",
+                           "live_edges")}}
+    passes = {name: s.dispatches for name, (_, s) in scorers.items()}
+    p50 = {name: statistics.median(v) for name, v in host_s.items()}
+    res = {"events": len(stream), "ticks": ticks, "rescores_checked": checked,
+           "passes": passes, "launches": launches,
+           "host_s_per_tick_p50": p50, "build_s": build_s,
+           "rebuilds": {n: s.rebuilds for n, (_, s) in scorers.items()},
+           "mirror_builds": {n: s.mirror_builds
+                             for n, (_, s) in scorers.items()},
+           "Pn": scorers["D1"][1].snapshot.padded_nodes,
+           "Pi": scorers["D1"][1].snapshot.padded_incidents,
+           "pe_shard": {f"D{d}": scorers[f"D{d}"][1]._pe_shard
+                        for d in MESH_LEARNED_SHARDS},
+           "b2": b2, "max_abs_err": err,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"mesh learned: {len(stream)} events, {ticks} ticks, {checked} "
+        f"rescores held to D = 1 (D2 depth 1 and fused bit-equal to D2); "
+        f"passes {passes}, launches {launches}; host s a tick p50 {p50}; "
+        f"B2 {b2}")
+    return res
+
+
+def sharded_loss_and_grads(mesh, arrays, params, halo: str, offs):
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel.sharded_gnn import (
+        _sharded_loss)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    p = gnn.trainable(params)
+    loss = _sharded_loss(mesh, halo, offs)(p, *arrays)
+    grads = torch.autograd.grad(loss, gnn.leaves(p))
+    return float(loss.detach()), [g.detach() for g in grads]
+
+
+def run_mesh_train(dev, snapshot, oracle: dict) -> dict:
+    """Phase 20 (b): the sharded train step at config 3 (the rules
+    oracle's labels, the shipped params) on (1 x 2), (2 x 2) and (1 x 4)
+    meshes of positions on the card, both halos: the loss within 1e-4 of
+    the single-device loss; ring against all-gather, loss within 1e-5 and
+    grads within rtol 1e-4 / atol 1e-5; one step's launches, two runs of
+    it bit-equal, its device ms; on (1 x 4) the ring's grads against the
+    plain message pass (every leaf within GRAD_LEAF_LIMIT of its scale)
+    and grad_w against its plain version at a ring step's inputs."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel import (
+        make_mesh, partition_snapshot)
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel.sharded_gnn import (
+        _in_block, device_put_partitioned, make_sharded_train_step)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import gnn
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.ruleset import (
+        RULE_INDEX)
+    t_phase = time.perf_counter()
+    labels = np.asarray([RULE_INDEX.get(oracle.get(nid), gnn.NUM_CLASSES - 1)
+                         for nid in snapshot.incident_ids], np.int32)
+    batch = gnn.batch_to(gnn.snapshot_batch(snapshot, labels), dev)
+    params0 = shipped_params(dev)
+    with kept_counts(), torch.no_grad():
+        single = float(gnn.loss_fn(
+            params0, *(batch[k] for k in gnn.TRAIN_ARRAYS),
+            rel_offsets=tuple(snapshot.rel_offsets)))
+    by_mesh, launches = {}, {}
+    gw_err = gw_rel = grad_err = 0.0
+    for name, (dp, graph) in MESH_TRAIN_SHAPES.items():
+        part = partition_snapshot(snapshot, dp, graph, labels=labels)
+        mesh = make_mesh(dp, graph, [dev] * (dp * graph))
+        arrays = device_put_partitioned(part, mesh)
+        offs = part.rel_offsets
+        got = {}
+        for halo in ("allgather", "ring"):
+            with kept_counts():
+                loss, grads = sharded_loss_and_grads(mesh, arrays, params0,
+                                                     halo, offs)
+            if abs(loss - single) > 1e-4:
+                raise AssertionError(f"train {name} {halo}: loss {loss}, "
+                                     f"single-device {single}")
+            got[halo] = (loss, grads)
+            step = make_sharded_train_step(mesh, gnn.adam(3e-3), halo=halo,
+                                           rel_offsets=offs)
+            reset_counts()
+            p1, opt, _ = step(params0, None, *arrays)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            launches[f"{name}_{halo}"] = counts
+            with kept_counts():
+                p2 = step(params0, None, *arrays)[0]
+                torch.cuda.synchronize()
+                a, b = gnn.flat_params(p1), gnn.flat_params(p2)
+                differ = [k for k in a if not torch.equal(a[k], b[k])]
+                if differ:
+                    raise AssertionError(f"train {name} {halo}: two runs of "
+                                         f"the step differ in {differ}")
+                step_ms = device_ms(lambda: step(p1, opt, *arrays), iters=3)
+                wall_ms = cuda_ms(lambda: step(p1, opt, *arrays), iters=3,
+                                  warmup=1)
+            by_mesh[f"{name}_{halo}"] = {
+                "loss": loss, "launches_per_step": counts,
+                "device_ms_per_step": step_ms, "wall_ms_per_step": wall_ms}
+        (l_ag, g_ag), (l_ring, g_ring) = got["allgather"], got["ring"]
+        if abs(l_ring - l_ag) > 1e-5:
+            raise AssertionError(f"train {name}: ring loss {l_ring}, "
+                                 f"all-gather {l_ag}")
+        for leaf, a, b in zip(gnn.flat_params(params0), g_ring, g_ag):
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
+                raise AssertionError(
+                    f"train {name}: ring grad {leaf} differs from the "
+                    f"all-gather one by {float((a - b).abs().max())}")
+        if (dp, graph) == (1, 4):
+            with kept_counts():
+                with plain_message_pass():
+                    _, g_plain = sharded_loss_and_grads(mesh, arrays,
+                                                        params0, "ring", offs)
+                for leaf, a, b in zip(gnn.flat_params(params0), g_ring,
+                                      g_plain):
+                    grad_err = max(grad_err, within_scale(
+                        a.cpu(), b.cpu(), f"train {name} ring grad {leaf}",
+                        GRAD_LEAF_LIMIT)[0])
+                # B5 at one ring step's inputs: position 1 holding block 0
+                h = node_table(params0, *(arrays[k].blocks[0, 0][0]
+                                          for k in range(3)))
+                esrc, edst, emask = (arrays[k].blocks[0, 1][0]
+                                     for k in (3, 4, 6))
+                inside, local = _in_block(esrc, 0, part.nodes_per_shard)
+                g = torch.randn((part.nodes_per_shard, h.shape[1]),
+                                generator=torch.Generator().manual_seed(9)
+                                ).to(dev)
+                e, r = grad_w_check(h, g, local.to(torch.int32), edst,
+                                    emask * inside, offs, gnn.NUM_RELS,
+                                    f"train {name} ring step (block 0 at "
+                                    "position 1)")
+                gw_err, gw_rel = max(gw_err, e), max(gw_rel, r)
+    res = {"single_device_loss": single, "by_mesh": by_mesh,
+           "launches": launches, "grad_vs_plain_max_abs_err": grad_err,
+           "grad_w_max_abs_err": gw_err, "grad_w_max_rel_err": gw_rel,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"mesh train at config 3: single-device loss {single:.6f}; "
+        f"{ {k: (v['loss'], v['launches_per_step'], v['device_ms_per_step']) for k, v in by_mesh.items()} }")
+    return res
+
+
+def run_mesh_learner(dev, num_pods: int = 10_000, num_incidents: int = 100,
+                     seed: int = 0, shards: int = 2) -> dict:
+    """Phase 20 (c): one ``OnlineLearner.run_once()`` on the config-4
+    world with ``learn_mesh_shards`` = ``shards``: the candidate comes from
+    the sharded fine-tune (``sharded`` True), finite; the gate's verdict
+    and the cycle time."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.learn import trainer
+    _, _, _, _, learner = learner_world(dev, num_pods, num_incidents, seed,
+                                        learn_mesh_shards=shards)
+    results = []
+    train_candidate = learner.train_candidate
+
+    def kept_result():
+        res = train_candidate()
+        results.append(res)
+        return res
+    learner.train_candidate = kept_result
+    reset_counts()
+    t0 = time.perf_counter()
+    out = learner.run_once()
+    torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t0
+    counts = read_counts()
+    if not (out["trained"] and len(results) == 1
+            and results[0]["sharded"] is True
+            and trainer.params_finite(results[0]["params"])):
+        raise AssertionError(f"learner on the mesh: {out}, "
+                             f"{[r.get('sharded') for r in results]}")
+    if counts["grad_w"] < 1 or counts["gms"] < 1:
+        raise AssertionError(f"learner on the mesh: launches {counts}")
+    res = {"sharded": True, "train_steps": out["train_steps"],
+           "final_loss": out["final_loss"], "gate": out["gate"],
+           "swapped": out["swapped"], "cycle_s": cycle_s,
+           "launches": counts}
+    log(f"learner on a (1 x {shards}) mesh: {res}")
+    return res
+
+
 def by_incident(out: dict, key: str) -> list:
     """``out[key]`` row by row, in sorted incident-id order."""
     rows = {iid: i for i, iid in enumerate(out["incident_ids"])}
@@ -5105,6 +5494,27 @@ def main(argv: list[str]) -> int:
                           for k, c in mesh_run["launches"].items()})
     split_paths = {f"mesh_{k}": c for k, c in mesh_run["launches"].items()}
 
+    # -- 20. the learned scorer on meshes of positions on the card: the
+    # config-4 learned churn at D 2 and 4 beside D = 1, the sharded train
+    # step at config 3, the learner's sharded fine-tune ------------------
+    mesh_learned = run_mesh_learned(dev)
+    mesh_train = run_mesh_train(dev, snapshot, oracle)
+    mesh_learner = run_mesh_learner(dev)
+    gms_err = max(gms_err, mesh_learned["max_abs_err"],
+                  mesh_train["grad_vs_plain_max_abs_err"])
+    gw_err = max(gw_err, mesh_train["grad_w_max_abs_err"])
+    gw_rel = max(gw_rel, mesh_train["grad_w_max_rel_err"])
+    mesh_train_counts = {
+        k: sum(c[k] for c in mesh_train["launches"].values())
+        for k in ("gms", "grad_w", "rules_fold", "fused_tick",
+                  "fused_tick_dma")}
+    learned_paths = {"mesh_learned_serving": mesh_learned["launches"],
+                     "mesh_learned_train": mesh_train_counts,
+                     "mesh_learned_learner": mesh_learner["launches"]}
+    rules_learned.update({k: c["rules_fold"]
+                          for k, c in learned_paths.items()})
+    split_paths["mesh_learned_serving"] = mesh_learned["launches"]
+
     kernels = [{
         "name": "rules_fold", "route": "cuda",
         "source": "kubernetes_aiops_evidence_graph_tpu_torch/kernels/rules_fold.cu",
@@ -5145,13 +5555,16 @@ def main(argv: list[str]) -> int:
         "launches": learned3["launches"] + learned4["launches"] + sum(
             c["gms"] for c in train_paths.values()) + sum(
             c["gms"] for c in app_paths.values())
-            + recovery["launches"]["gms"] + obs["launches"]["gms"],
+            + recovery["launches"]["gms"] + obs["launches"]["gms"]
+            + sum(c["gms"] for c in learned_paths.values()),
         "launches_by_path": {"config3_learned": learned3["launches"],
                              "config4_learned": learned4["launches"],
                              **{k: c["gms"] for k, c in train_paths.items()},
                              **{k: c["gms"] for k, c in app_paths.items()},
                              "config4_recovery": recovery["launches"]["gms"],
-                             "config4_scope": obs["launches"]["gms"]},
+                             "config4_scope": obs["launches"]["gms"],
+                             **{k: c["gms"] for k, c in
+                                learned_paths.items()}},
         "config4_ticks": learned4["ticks"],
         "max_abs_err": gms_err,
         "ms": learned3["timing"]["ms"],
@@ -5175,6 +5588,7 @@ def main(argv: list[str]) -> int:
         "config4": {k: learned4["timing"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
             "ms_per_call", "plan_ms", "ms_by_kernel", "timed_by")},
+        "config4_mesh_shards": mesh_learned["b2"],
     }]
     def tier_timings(runs):
         out = {r: tiers[r]["timing"] for r in runs}
@@ -5195,12 +5609,14 @@ def main(argv: list[str]) -> int:
             "replaces": "kubernetes_aiops_evidence_graph_tpu/ops/"
                         f"pallas_segment.py:{line}",
             "launches": sum(tiers[r]["counts"][name] for r in runs)
-            + recovery["launches"][name] + obs["launches"][name],
+            + recovery["launches"][name] + obs["launches"][name]
+            + sum(c[name] for c in learned_paths.values()),
             "launches_by_path": {
                 **{f"config4_learned_{r}": tiers[r]["counts"][name]
                    for r in runs},
                 "config4_recovery": recovery["launches"][name],
-                "config4_scope": obs["launches"][name]},
+                "config4_scope": obs["launches"][name],
+                **{k: c[name] for k, c in learned_paths.items()}},
             "config4_ticks": tiers[runs[0]]["ticks"],
             "max_abs_err": fused_err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -5227,8 +5643,12 @@ def main(argv: list[str]) -> int:
         "replaces": "kubernetes_aiops_evidence_graph_tpu/ops/"
                     "pallas_segment.py:292 (_grad_w_kernel, launched by "
                     "_gms_grad_w :314; pallas_call :356)",
-        "launches": sum(c["grad_w"] for c in train_paths.values()),
-        "launches_by_path": {k: c["grad_w"] for k, c in train_paths.items()},
+        "launches": sum(c["grad_w"] for c in train_paths.values())
+        + sum(c["grad_w"] for c in learned_paths.values()),
+        "launches_by_path": {**{k: c["grad_w"]
+                                for k, c in train_paths.items()},
+                             **{k: c["grad_w"]
+                                for k, c in learned_paths.items()}},
         "max_abs_err": gw_err, "max_rel_err": gw_rel,
         "ms": bwd3["ms"], "plain_ms": bwd3["plain_ms"],
         "bound_ms": bwd3["bound_ms"], "bound_by": bwd3["bound_by"],
@@ -5250,6 +5670,9 @@ def main(argv: list[str]) -> int:
                 "ms_per_launch", "bound_ms", "launches")},
             "config4_online_learner": {k: online["grad_w"][k] for k in (
                 "ms_per_launch", "bound_ms", "launches")}},
+        "config3_mesh_steps": {k: {"launches_per_step": v[
+            "launches_per_step"]["grad_w"], "device_ms_per_step": v[
+            "device_ms_per_step"]} for k, v in mesh_train["by_mesh"].items()},
     })
     for name, entry, path in (
             ("rules_fold_partial", "partial", "sharded_rules_tick :116 and "
@@ -5292,6 +5715,12 @@ def main(argv: list[str]) -> int:
     log(f"mesh ({smi}): launches {mesh_run['launches']}; config-4 host s a "
         f"tick p50 {mesh_run['config4']['host_s_per_tick_p50']}; phase "
         f"{mesh_run['phase_s']:.1f} s")
+    log(f"mesh learned ({smi}): host s a tick p50 "
+        f"{mesh_learned['host_s_per_tick_p50']}; B2 a launch "
+        f"{ {k: (v['ms'], v['bound_ms']) for k, v in mesh_learned['b2'].items()} }"
+        f"; phase {mesh_learned['phase_s']:.1f} s; train phase "
+        f"{mesh_train['phase_s']:.1f} s; learner cycle "
+        f"{mesh_learner['cycle_s']:.2f} s, gate {mesh_learner['gate']}")
     for kind, r in recovery["kinds"].items():
         log(f"recovery {kind} ({smi}): {r['faults_fired']} faults, "
             f"transitions {r['tier_log']}, restart replayed "
@@ -5457,6 +5886,9 @@ def main(argv: list[str]) -> int:
                        if k != "launches"}}}, default=str))
     print(json.dumps({"native": {"card": smi, **native_run}}))
     print(json.dumps({"mesh": {"card": smi, **mesh_run}}, default=str))
+    print(json.dumps({"mesh_learned": {
+        "card": smi, "serving": mesh_learned, "train": mesh_train,
+        "learner": mesh_learner}}, default=str))
     print(json.dumps({"cli": {"card": smi, **cli_run}}))
     print(json.dumps({"blast": {"card": smi, **blast}}))
     print(json.dumps({"live": {"card": smi, **live}}))

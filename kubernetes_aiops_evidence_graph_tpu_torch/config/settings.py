@@ -151,9 +151,9 @@ class Settings:
     mesh_attest: bool = True
 
     # --- serving meshes (parallel/): the rules scorer serves on a
-    # graph-sharded and/or data-parallel mesh (ROADMAP item 9a); with
-    # rca_backend="gnn" (9b), shield_enabled or elastic_enabled (9c) a
-    # value above 1 raises ---
+    # graph-sharded and/or data-parallel mesh, the learned scorer on the
+    # graph axis; with shield_enabled or elastic_enabled (ROADMAP item
+    # 9c) a value above 1 raises ---
     serve_graph_shards: int = 1
     mesh_dp: int = 1
 

@@ -1,6 +1,6 @@
 """Background fine-tune from the live checkpoint + the eval gate.
 
-The port of the JAX package's ``learn/trainer.py``, single-device:
+The port of the JAX package's ``learn/trainer.py``:
 
 * :func:`make_finetune_step` — the relation-bucketed loss plus a PROXIMAL
   ANCHOR ``0.5·w·Σ‖θ − θ_serve‖²`` pulling the candidate toward the
@@ -8,16 +8,17 @@ The port of the JAX package's ``learn/trainer.py``, single-device:
   story; the replay mix of simulator episodes is the data-space half).
   The anchor is read every step and never written.
 * :func:`finetune` — a FRESH candidate fine-tuned over the interleaved
-  production/simulator schedule; the serving tree is never mutated.
+  production/simulator schedule; the serving tree is never mutated. With
+  ``mesh_shards > 1`` it drives the sharded train step
+  (``parallel/sharded_gnn.py``, ring halo) on a ``(1 x shards)`` data
+  mesh over partitioned episodes (:func:`_finetune_sharded`).
 * the **gate**: :func:`params_finite` and :func:`gate_eval` (holdout top-1).
 
 On the card every message pass of the fine-tune and its backward run
 through the hand kernels. ``pallas_grads`` (``settings.learn_pallas_grads``)
 first holds one loss + grads through the params' device against a CPU copy
 through the plain versions (:func:`check_grads_parity`) and RAISES on a
-mismatch; the JAX package instead falls back to its XLA step. The
-data-parallel fine-tune (``mesh_shards > 1``) is not ported yet (ROADMAP
-item 9b) and raises.
+mismatch; the JAX package instead falls back to its XLA step.
 """
 from __future__ import annotations
 
@@ -133,14 +134,18 @@ def finetune(serving_params, episodes: list, sim_episodes: list,
     "steps", "final_loss", "sharded", "pallas"}``; the candidate is a FRESH
     tree (the serving tree is never mutated; the swap is the only way a
     candidate reaches serving). ``pallas_grads`` runs
-    :func:`check_grads_parity` on the first scheduled episode first."""
+    :func:`check_grads_parity` on the first scheduled episode first.
+    ``mesh_shards > 1`` runs :func:`_finetune_sharded` on a ``(1 x
+    mesh_shards)`` mesh, or (logged ``learn_mesh_unavailable``) this
+    single-device tier when the position pool cannot carry one."""
     if not episodes and not sim_episodes:
         raise ValueError("finetune needs at least one episode")
-    if mesh_shards > 1:
-        raise NotImplementedError(
-            f"learn_mesh_shards={mesh_shards}: the data-parallel fine-tune "
-            "is not ported yet (ROADMAP item 9b, multi-device); use 1")
     schedule = _interleave(episodes, sim_episodes, steps)
+    if mesh_shards > 1:
+        mesh = _data_mesh(mesh_shards, serving_params["embed_w"].device)
+        if mesh is not None:
+            return _finetune_sharded(serving_params, schedule, lr, mesh)
+        log.warning("learn_mesh_unavailable: shards=%d", mesh_shards)
     if pallas_grads:
         check_grads_parity(serving_params, schedule[0])
     dev = serving_params["embed_w"].device
@@ -163,6 +168,76 @@ def finetune(serving_params, episodes: list, sim_episodes: list,
     return {"params": params, "steps": len(schedule),
             "final_loss": float(loss), "sharded": False,
             "pallas": bool(pallas_grads)}
+
+
+def _data_mesh(shards: int, device: torch.device):
+    """The ``(1 x shards)`` data mesh of the sharded fine-tune, on the
+    serving params' platform: the CPU's host positions (grown as serving
+    grows them, ``parallel/mesh.ensure_host_devices``), or positions that
+    repeat the params' card (a mesh over several cards is ROADMAP item
+    9c, as for serving). None when the pool cannot carry it."""
+    from ..parallel.mesh import (check_one_card, ensure_host_devices,
+                                 host_devices, make_mesh)
+    device = torch.device(device)
+    if device.type == "cpu":
+        if not ensure_host_devices(shards):
+            return None
+        devices = host_devices()
+    else:
+        devices = [device] * shards
+    if len(devices) < shards:
+        return None
+    return check_one_card(make_mesh(1, shards, devices[:shards]))
+
+
+def _finetune_sharded(serving_params, schedule: list, lr: float,
+                      mesh) -> dict:
+    """Drive the sharded train step (``parallel/sharded_gnn.py``, ring
+    halo, one step per relation layout) over partitioned episodes, with
+    Adam at ``lr``. Episodes must carry their snapshot, and its padded
+    node count must divide over the mesh; others are skipped (ValueError
+    when none is left). The label mask stands in for the incident mask,
+    so unlabeled rows never add loss. As in the JAX package this tier has
+    no proximal anchor (``anchor_weight`` is not read) and reports no
+    ``pallas`` key."""
+    import dataclasses
+    from ..parallel.partition import partition_snapshot
+    from ..parallel.sharded_gnn import (device_put_partitioned,
+                                        make_sharded_train_step)
+    graph = mesh.shape["graph"]
+    steps_by_offs: dict = {}
+    placed: dict[int, tuple] = {}    # each episode partitions and moves once
+    params, opt_state = serving_params, None
+    loss = torch.zeros(())
+    ran = 0
+    for ep in schedule:
+        snap = ep.get("snapshot")
+        if snap is None or snap.padded_nodes % graph:
+            continue
+        hit = placed.get(id(ep))
+        if hit is None:
+            labeled = dataclasses.replace(
+                snap, incident_mask=np.asarray(ep["label_mask"], np.float32))
+            part = partition_snapshot(labeled, dp=1, graph=graph,
+                                      labels=np.asarray(ep["labels"]))
+            hit = placed[id(ep)] = (part.rel_offsets,
+                                    device_put_partitioned(part, mesh))
+        key, arrays = hit
+        step = steps_by_offs.get(key)
+        if step is None:
+            step = steps_by_offs[key] = make_sharded_train_step(
+                mesh, gnn.adam(lr), halo="ring", rel_offsets=key)
+        params, opt_state, loss = step(params, opt_state, *arrays)
+        obs_metrics.LEARN_TRAIN_STEPS.inc()
+        ran += 1
+    if not ran:
+        raise ValueError(
+            "no episode was partitionable over the learn mesh "
+            "(padded_nodes must divide by learn_mesh_shards)")
+    params = gnn.unflat_params({k: v.detach() for k, v in
+                                gnn.flat_params(params).items()})
+    return {"params": params, "steps": ran, "final_loss": float(loss),
+            "sharded": True}
 
 
 def params_finite(params) -> bool:

@@ -11,7 +11,14 @@ calls:
 * :func:`psum` over ``graph``: the positions' tensors summed in position
   order ``0..D-1`` (on the first position's device, then handed to every
   position of the group);
-* :func:`concat_dp`: the dp positions' outputs concatenated in row order.
+* :func:`concat_dp`: the dp positions' outputs concatenated in row order;
+* the halo collectives of the learned path over ``graph``:
+  :func:`ring_shift` (every position's block moves one hop,
+  ``(g -> g+1) mod D``) and :func:`all_gather` (the row's blocks
+  concatenated in position order, at every position). Both move blocks
+  with ``.to()``, which autograd differentiates, and count themselves
+  (:data:`ring_hops`, :data:`all_gathers`) so a run can show its
+  collective census.
 
 No floating-point atomics, and each sum runs in a fixed order, so results
 are the same from run to run.
@@ -25,6 +32,12 @@ import numpy as np
 import torch
 
 from .mesh import Mesh, Placement
+
+ring_hops = 0
+""":func:`ring_shift` calls so far (one hop of every block of the mesh
+each); a run resets it to read its census."""
+all_gathers = 0
+""":func:`all_gather` calls so far."""
 
 
 @dataclass(frozen=True)
@@ -142,3 +155,37 @@ def concat_dp(outs: np.ndarray, mesh: Mesh) -> tuple:
         return tuple(rows[0])
     return tuple(torch.cat([r[k].to(first) for r in rows])
                  for k in range(len(rows[0])))
+
+
+def ring_shift(blocks: np.ndarray, mesh: Mesh) -> np.ndarray:
+    """One hop of the ring over ``graph``: position ``(i, g)`` receives the
+    block position ``(i, g - 1 mod D)`` held (on its own device), the
+    host-driven counterpart of a ``ppermute`` with the ring permutation.
+    ``blocks`` is a ``(dp, graph)`` object grid of tensors; returns the
+    shifted grid. Counted in :data:`ring_hops`."""
+    global ring_hops
+    grid = mesh.grid
+    g_size = grid.shape[1]
+    out = np.empty(grid.shape, dtype=object)
+    for i in range(grid.shape[0]):
+        for g in range(g_size):
+            out[i, (g + 1) % g_size] = blocks[i, g].to(grid[i, (g + 1)
+                                                            % g_size])
+    ring_hops += 1
+    return out
+
+
+def all_gather(blocks: np.ndarray, mesh: Mesh) -> np.ndarray:
+    """The ``graph`` blocks of each dp row concatenated in position order,
+    handed to every position of the row on its own device (a tiled
+    ``all_gather``). Counted in :data:`all_gathers`."""
+    global all_gathers
+    grid = mesh.grid
+    out = np.empty(grid.shape, dtype=object)
+    for i in range(grid.shape[0]):
+        for g in range(grid.shape[1]):
+            dev = grid[i, g]
+            out[i, g] = torch.cat([blocks[i, j].to(dev)
+                                   for j in range(grid.shape[1])])
+    all_gathers += 1
+    return out

@@ -29,11 +29,25 @@ over the mesh's positions (``parallel/compat.py``):
   keeps a whole feature table, and each dp position launches the whole
   ``rules_fold`` on its row block.
 
-* **In place.** Both ticks update the resident blocks in place, like the
-  single-device tick; nothing is reallocated.
+  :func:`sharded_gnn_tick` (the learned scorer): each position copies
+  its routed mirror delta in place, then the ring-halo message pass — per
+  layer the ``[Pe_shard, H]`` source rows of the position's edges are
+  ASSEMBLED over D ring hops of the ``[Pn/D, H]`` embedding blocks (each
+  slot's row arrives from exactly one block; the masked adds are exact),
+  and ``kernels/gms`` runs shard-local on them. The readout streams the
+  incident embeddings out of the ring: ``(LAYERS+1)·D`` ring hops a tick
+  and no all-gather (``compat.ring_hops``).
 
-Waiting for the GNN slice: ``sharded_gnn_tick`` and
-``shared_shard_offsets`` (the learned scorer's mesh, ROADMAP item 9b).
+* **In place.** The ticks update the resident blocks in place, like the
+  single-device ticks; nothing is reallocated.
+
+* **Parity.** The learned tick is bit-identical across pipeline depths at
+  a fixed D, and bit-identical to D = 1 on a freshly mirrored state: each
+  per-shard region keeps its destinations' edges in store order,
+  relation-major, as the single-device layout does, so ``kernels/gms``
+  sums every destination's messages in the same order. Slot reuse under
+  churn reorders those sums: verdicts stay equal to D = 1, probs to float
+  tolerance.
 """
 from __future__ import annotations
 
@@ -46,6 +60,7 @@ from ..kernels.rules_fold import (rules_fold, rules_fold_partial_packed,
 from ..observability import scope as obs_scope
 from . import compat
 from .mesh import Mesh
+from .sharded_gnn import _in_block
 
 
 def owner_of(rows, nodes_per_shard: int):
@@ -187,3 +202,120 @@ def dp_rules_tick(mesh: Mesh, rows_per_shard: int, pair_width: int, pk: int,
         return compat.concat_dp(outs, mesh)
 
     return tick
+
+
+def sharded_gnn_tick(mesh: Mesh, nodes_per_shard: int, pe_shard: int, pi: int,
+                     pk: int, ek: int, rel_offsets=None,
+                     slices_sorted: bool = False, compute_dtype=None,
+                     use_pallas: bool = False):
+    """Graph-sharded learned tick: the mesh-resident counterpart of
+    ``rca/gnn_streaming._gnn_tick``.
+
+    Resident per-position state (``compat.Sharded`` over ``graph``): the
+    feature node blocks (the base scorer's, already updated by its tick),
+    ``kind``/``nmask`` node blocks, and the edge mirror's D per-shard
+    relation-bucketed regions (``[Pe_shard]`` each, GLOBAL src ids and
+    LOCAL dst rows: every edge lives on its destination's owner, so the
+    segment sum is shard-local).
+
+    Returns ``tick(params, features, kind, nmask, esrc, edst, erel, emask,
+    ints, f_live, e_live) -> (logits, probs)``: ``ints`` is the per-shard
+    packed delta uploaded once per device (``{device: [D, L] int32}``),
+    row g laid out as ``gnn_streaming.copy_mirror_delta`` reads it (local
+    rows and slots, global sources) followed by ``[inc_nodes pi (global)
+    | inc_mask pi]``; ``f_live``/``e_live`` are each shard's live
+    prefixes. Every position applies its shard's delta (dp rows keep
+    their replicas in step); dp row 0 runs the forward. Outputs are on the
+    mesh's first device, probs zeroed on dead incident rows.
+
+    ``rel_offsets`` is the shared per-shard slice table ``kernels/gms``
+    runs on. ``slices_sorted`` and ``use_pallas``
+    (``settings.gnn_fused_tick``) are the JAX signature's: the port's pass
+    takes any slice order, and on a CUDA tensor the shard-local pass is
+    always the ``gms`` kernel."""
+    from ..kernels import gms
+    from ..rca import gnn
+    from ..rca.gnn_streaming import copy_mirror_delta
+    from .sharded_gnn import _on, _ring_readout
+
+    del slices_sorted, use_pallas
+    if rel_offsets is None:
+        raise ValueError("the sharded learned tick runs the relation-"
+                         "bucketed pass: pass rel_offsets")
+    nps = int(nodes_per_shard)
+    offs = tuple(int(o) for o in rel_offsets)
+    g_size = mesh.shape["graph"]
+    row = Mesh(mesh.grid[:1].copy(), ("dp", "graph"))
+    o_i = 3 * pk + 5 * ek
+
+    def tick(params, features, kind, nmask, esrc, edst, erel, emask, ints,
+             f_live, e_live):
+        compat.run(mesh, lambda pos, *mirror: copy_mirror_delta(
+            ints[pos.device][pos.graph], pk, ek, f_live[pos.graph],
+            e_live[pos.graph], *mirror), kind, nmask, esrc, edst, erel, emask)
+
+        pos = compat.positions(row)
+        shape = row.grid.shape
+        h, inc_nodes = (np.empty(shape, dtype=object) for _ in range(2))
+        state = {}
+        for p in pos:
+            g = p.graph
+            es, ed, em = esrc.block(p), edst.block(p), emask.block(p)
+            # each ring step's block mask and local rows: the slots'
+            # sources are fixed through the tick, so every layer reuses them
+            steps = [_in_block(es, ((g - r) % g_size) * nps, nps)
+                     for r in range(g_size)]
+            plan = (gms.make_plan(ed, em, offs, nps)
+                    if ed.device.type == "cuda" else None)
+            iota = torch.arange(pe_shard, dtype=torch.int32, device=p.device)
+            prm = _on(params, p.device)
+            state[g] = (gnn.inv_degree(ed, em, nps), steps, plan, iota, prm)
+            h[0, g] = gnn.embed(prm, features.block(p), kind.block(p),
+                                nmask.block(p))
+            inc_nodes[0, g] = ints[p.device][g][o_i:o_i + pi]
+        for li in range(len(params["layers"])):
+            rows = _assemble_ring(row, pos, h, state)
+            for p in pos:
+                inv_deg, _, plan, iota, prm = state[p.graph]
+                h[0, p.graph] = gnn._message_pass_bucketed(
+                    h[0, p.graph], prm["layers"][li], iota, edst.block(p),
+                    emask.block(p), offs, inv_deg, compute_dtype, plan,
+                    table=rows[p.graph])
+        emb = _ring_readout(row, h, inc_nodes, nps)[0, 0]
+        prm0 = state[0][4]
+        inc_mask = ints[pos[0].device][0][o_i + pi:o_i + 2 * pi]
+        logits = emb @ prm0["head_w"] + prm0["head_b"]
+        # mask dead incident rows so a stale row can never surface a score
+        probs = torch.softmax(logits, dim=-1) * inc_mask.to(
+            torch.float32)[:, None]
+        return logits, probs
+
+    return tick
+
+
+def _assemble_ring(row: Mesh, pos: list, h: np.ndarray, state: dict) -> dict:
+    """Each position's ``[Pe_shard, H]`` source rows, assembled over one
+    rotation of the embedding blocks: at step r a position holds block
+    ``(g - r) mod D`` and adds the rows of its slots whose source lives
+    there (padded slots, src 0 and mask 0, take block 0's row and the
+    kernel's mask zeroes them)."""
+    rows: dict = {}
+    blocks = h
+    for r in range(row.shape["graph"]):
+        for p in pos:
+            inside, local = state[p.graph][1][r]
+            part = blocks[0, p.graph][local.long()] * inside[:, None]
+            rows[p.graph] = part if r == 0 else rows[p.graph] + part
+        blocks = compat.ring_shift(blocks, row)
+    return rows
+
+
+def shared_shard_offsets(counts_by_shard: np.ndarray, slack: float,
+                         min_cap: int) -> tuple[int, ...]:
+    """Shared per-shard relation-slice offsets: capacity per relation is
+    the MAX live count over shards, bucketed — one offsets tuple describes
+    EVERY shard's region (the ``partition.py`` contract)."""
+    from ..graph.snapshot import rel_slice_offsets
+    counts = np.asarray(counts_by_shard, np.int64)
+    return rel_slice_offsets(counts.max(axis=0), slack=slack,
+                             min_cap=min_cap)

@@ -164,7 +164,8 @@ _RULES_OUT_BYTES = NUM_CONDS + NUM_RULES + NUM_RULES * 4 + 4 + 1 + 4 + 4
 
 GNN_ENTRYPOINTS = ("streaming.gnn_tick.bucketed", "streaming.gnn_tick.fused",
                    "streaming.gnn_tick.fused.bf16", "streaming.gnn_tick.dma",
-                   "streaming.gnn_tick.dma.bf16", "streaming.gnn_tick.dma.int8")
+                   "streaming.gnn_tick.dma.bf16", "streaming.gnn_tick.dma.int8",
+                   "streaming.gnn_tick.sharded")
 """The learned scorer's entry points, one a tier (``rca/gnn_streaming.
 GnnStreamingScorer._tick_entrypoint``)."""
 
@@ -288,7 +289,10 @@ def tick_cost(entrypoint: str, **shapes) -> dict:
     move to the row's first position); the learned entry points take ``pn, pi,
     pe`` (the mirror's edge slots), ``pk, ek`` and the params' shapes
     ``hidden, layers`` (``dim, classes, num_rels, num_kinds`` default to
-    the schema's). A learned entry point prices the GNN tick alone: the
+    the schema's). ``streaming.gnn_tick.sharded`` also takes ``shards``
+    (``pe``, ``pk`` and ``ek`` per shard) and prices the ring's
+    ``(layers + 1) * shards`` hops of one ``[Pn/D, H]`` block each as
+    ``collective_bytes``. A learned entry point prices the GNN tick alone: the
     rules tick dispatched beside it is priced under its own entry point.
     The kernel terms are named by kernel (``B1``..``B4``)."""
     collective = 0
@@ -303,7 +307,12 @@ def tick_cost(entrypoint: str, **shapes) -> dict:
                  num_kinds=len(EntityKind))
         g.update(shapes)
         g.pop("width", None), g.pop("pair_width", None), g.pop("rk", None)
-        if entrypoint == "streaming.gnn_tick.bucketed":
+        if entrypoint == "streaming.gnn_tick.sharded":
+            cb = 2 if g.pop("compute_dtype", None) == "bfloat16" else 4
+            terms = _sharded_gnn_tick(compute_bytes=cb, **g)
+            collective = ((g["layers"] + 1) * g["shards"]
+                          * (g["pn"] // g["shards"]) * g["hidden"] * 4)
+        elif entrypoint == "streaming.gnn_tick.bucketed":
             cb = 2 if g.pop("compute_dtype", None) == "bfloat16" else 4
             terms = _composed_tick(compute_bytes=cb, **g)
         else:
@@ -560,3 +569,39 @@ def measure_gnn_forward_per_pass_s(params, batch: dict, k1: int = 4,
         return busy_us / 1e6 / k2
 
     return _slopes(dev, chain, graphed, k1, k2, repeats, profiled)
+
+
+def _sharded_gnn_tick(pn: int, pi: int, pe: int, pk: int, ek: int,
+                      shards: int, dim: int, hidden: int, classes: int,
+                      layers: int, num_rels: int, num_kinds: int,
+                      compute_bytes: int = 4) -> dict:
+    """The graph-sharded learned tick (``parallel/sharded_streaming.
+    sharded_gnn_tick``) over D = ``shards`` positions of ``pn / D`` node
+    rows and ``pe`` edge slots each: every position copies its mirror
+    delta in and takes its degree and embed; per layer it assembles its
+    ``[pe, H]`` source rows from the ring (each slot's row read once),
+    runs B2 on them at ``(pn / D, pe)`` and the update; the ring's
+    ``(layers + 1) * D`` block copies; one readout and its softmax."""
+    nps = pn // shards
+    ints = 4 * (3 * pk + 5 * ek + 2 * pi)
+    delta = (shards * (ints + 8 * pk + 16 * ek), 0)
+    degree = (shards * (pe * 8 + nps * 4), shards * pe)
+    embed = (shards * (nps * dim * 4 + 8 * nps + nps * hidden * 4
+                       + 4 * (dim * hidden + hidden + num_kinds * hidden)),
+             shards * 2 * nps * dim * hidden)
+    assemble = (shards * (pe * 4 + 2 * pe * hidden * 4), 0)
+    b2 = (pe * hidden * compute_bytes + pe * 12
+          + num_rels * hidden * hidden * compute_bytes + nps * hidden * 4,
+          2 * pe * hidden * hidden)
+    update = (nps * hidden * 4 * 3 + nps * 4
+              + (hidden * hidden + hidden) * 4,
+              2 * nps * hidden * hidden + 4 * nps * hidden)
+    ring = ((layers + 1) * shards * 2 * nps * hidden * 4, 0)
+    readout = (pi * 4 + pi * hidden * 4 + (hidden * classes + classes) * 4
+               + 2 * pi * classes * 4, 2 * pi * hidden * classes)
+    return {"delta": delta, "degree": degree, "embed": embed,
+            "assemble": (layers * assemble[0], 0),
+            "B2": (layers * shards * b2[0], layers * shards * b2[1]),
+            "update": (layers * shards * update[0],
+                       layers * shards * update[1]),
+            "ring": ring, "readout": readout}

@@ -131,20 +131,55 @@ def _message_pass(h, layer, edge_src, edge_dst, edge_rel, edge_mask,
 
 
 def _message_pass_bucketed(h, layer, edge_src, edge_dst, edge_mask,
-                           rel_offsets, inv_deg, compute_dtype, plan):
+                           rel_offsets, inv_deg, compute_dtype, plan,
+                           table=None):
     """One round over the relation-bucketed layout through ``kernels/gms``.
     ``compute_dtype`` ("bfloat16") casts the matmul operands only;
-    accumulation stays float32."""
+    accumulation stays float32. ``table`` is the node table the edges
+    gather from (default ``h``; the graph-sharded tick passes its
+    assembled ``[E, H]`` source rows with ``edge_src`` their iota)."""
     agg = gms.gather_matmul_segment(
-        h, layer["w_rel"], edge_src, edge_dst, edge_mask, rel_offsets,
-        h.shape[0], compute_dtype=compute_dtype, plan=plan) \
-        * inv_deg[:, None]
+        h if table is None else table, layer["w_rel"], edge_src, edge_dst,
+        edge_mask, rel_offsets, h.shape[0], compute_dtype=compute_dtype,
+        plan=plan) * inv_deg[:, None]
+    return layer_update(h, layer, agg, compute_dtype)
+
+
+def layer_update(h, layer, agg, compute_dtype=None):
+    """A layer's update from its degree-normalised aggregate:
+    ``relu(h @ w_self + agg + b) + h``."""
     if compute_dtype is not None:
         cdt = as_dtype(compute_dtype)
         self_t = h.to(cdt).to(h.dtype) @ layer["w_self"].to(cdt).to(h.dtype)
     else:
         self_t = h @ layer["w_self"]
     return torch.relu(self_t + agg + layer["b"]) + h
+
+
+def inv_degree(edge_dst, edge_mask, n: int) -> torch.Tensor:
+    """``1 / deg`` of each of the ``n`` destination rows (0 where none)."""
+    # degree: a sum of 0/1 masks, exact in any order
+    deg = torch.zeros(n, dtype=edge_mask.dtype, device=edge_mask.device
+                      ).index_add_(0, edge_dst.long(), edge_mask)
+    # maximum, not clamp: at deg == 1 its gradient splits between the two
+    # arguments, as jnp.maximum's does (edge_mask's gradient in training)
+    return torch.where(deg > 0, 1.0 / torch.maximum(deg, torch.ones_like(deg)),
+                       torch.zeros_like(deg))
+
+
+def embed(params: Params, features, node_kind, node_mask) -> torch.Tensor:
+    """The layer-0 node table ``relu(x @ embed_w + embed_b +
+    kind_emb[kind]) * mask``."""
+    # the kind lookup as a one-hot product: the same rows exactly (one term
+    # of 1 * row, the others 0), and a backward that is one deterministic
+    # matmul. On an H100 at config 3 the index form's backward took 16 ms
+    # of a 20 ms training step (it walks each kind's rows one by one) and
+    # F.embedding's adds with float atomics, so two steps differed
+    kinds = torch.arange(params["kind_emb"].shape[0], device=features.device)
+    one_hot = (node_kind.long()[:, None] == kinds).to(features.dtype)
+    h = torch.relu(features @ params["embed_w"] + params["embed_b"]
+                   + one_hot @ params["kind_emb"])
+    return h * node_mask[:, None]
 
 
 def forward(
@@ -167,23 +202,8 @@ def forward(
     layout) selects the bucketed mapping through ``kernels/gms``; without
     it the reference mapping runs, for CPU tensors only."""
     n = features.shape[0]
-    # degree: a sum of 0/1 masks, exact in any order
-    deg = torch.zeros(n, dtype=features.dtype, device=features.device
-                      ).index_add_(0, edge_dst.long(), edge_mask)
-    # maximum, not clamp: at deg == 1 its gradient splits between the two
-    # arguments, as jnp.maximum's does (edge_mask's gradient in training)
-    inv_deg = torch.where(deg > 0, 1.0 / torch.maximum(deg, torch.ones_like(deg)),
-                          torch.zeros_like(deg))
-    # the kind lookup as a one-hot product: the same rows exactly (one term
-    # of 1 * row, the others 0), and a backward that is one deterministic
-    # matmul. On an H100 at config 3 the index form's backward took 16 ms
-    # of a 20 ms training step (it walks each kind's rows one by one) and
-    # F.embedding's adds with float atomics, so two steps differed
-    kinds = torch.arange(params["kind_emb"].shape[0], device=features.device)
-    one_hot = (node_kind.long()[:, None] == kinds).to(features.dtype)
-    h = torch.relu(features @ params["embed_w"] + params["embed_b"]
-                   + one_hot @ params["kind_emb"])
-    h = h * node_mask[:, None]
+    inv_deg = inv_degree(edge_dst, edge_mask, n)
+    h = embed(params, features, node_kind, node_mask)
     if rel_offsets is not None:
         plan = (gms.make_plan(edge_dst, edge_mask, rel_offsets, n)
                 if features.device.type == "cuda" else None)

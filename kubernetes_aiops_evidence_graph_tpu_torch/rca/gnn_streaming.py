@@ -36,6 +36,16 @@ _call_gnn_tick`), all with the same verdicts at float32:
   fused_gnn_tick``;
 * **composed** (otherwise): :func:`_gnn_tick`, the scatter then
   ``rca/gnn.forward`` (``kernels/gms`` per layer).
+
+On a mesh with a real ``graph`` axis (``settings.serve_graph_shards`` or
+an explicit ``mesh``) the mirror is graph-sharded: D stacked per-shard
+region sets, each edge on its destination's owner shard with its dst
+shard-local, and every tick runs ``parallel/sharded_streaming.
+sharded_gnn_tick`` (the ring-halo message pass, ``kernels/gms``
+shard-local) after the base scorer's sharded rules tick. The three tiers
+are single-device layouts: on a sharded mirror every setting serves the
+sharded composed tick. A dp-only mesh has no sharded learned mapping and
+serves on one device (logged).
 """
 from __future__ import annotations
 
@@ -65,26 +75,20 @@ log = logging.getLogger(__name__)
 _EdgeKey = tuple[str, str, int]   # (src_id, dst_id, kind) — store edge key
 
 
-def _gnn_tick(params, features, kind, nmask, esrc, edst, erel, emask, ints,
-              pk: int, ek: int, pi: int, f_live: int, e_live: int,
-              rel_offsets: tuple[int, ...], compute_dtype=None) -> tuple:
-    """Copy the packed aux/edge deltas into the resident mirror IN PLACE,
-    then run the full forward. All deltas arrive in one int32 tensor:
+def copy_mirror_delta(ints, pk: int, ek: int, f_live: int, e_live: int,
+                      kind, nmask, esrc, edst, erel, emask) -> None:
+    """Copy a packed aux/edge delta into the resident mirror IN PLACE. The
+    deltas arrive in one int32 tensor:
 
       [ f_idx pk | kind_v pk | nmask_v pk |
-        e_idx ek | e_src ek | e_dst ek | e_rel ek | e_mask ek |
-        incident_nodes pi | incident_mask pi ]
+        e_idx ek | e_src ek | e_dst ek | e_rel ek | e_mask ek | ... ]
 
     Each delta is a live prefix (``f_live`` / ``e_live`` entries, unique
     in-range indices) followed by out-of-range padding; torch has no drop
-    mode, so only the prefix is copied. Masks ship as 0/1 ints. Returns
-    ``(logits, probs)``, probs zeroed on dead incident rows."""
+    mode, so only the prefix is copied. Masks ship as 0/1 ints."""
     f_idx, kind_v, nmask_v = (ints[j * pk:(j + 1) * pk] for j in range(3))
     e_idx, e_src, e_dst, e_rel, e_mask = (
         ints[3 * pk + j * ek:3 * pk + (j + 1) * ek] for j in range(5))
-    o = 3 * pk + 5 * ek
-    inc_nodes = ints[o:o + pi]
-    inc_mask = ints[o + pi:o + 2 * pi].to(torch.float32)
     if f_live:
         rows = f_idx[:f_live].long()
         for resident, delta in ((kind, kind_v), (nmask, nmask_v)):
@@ -94,6 +98,21 @@ def _gnn_tick(params, features, kind, nmask, esrc, edst, erel, emask, ints,
         for resident, delta in ((esrc, e_src), (edst, e_dst), (erel, e_rel),
                                 (emask, e_mask)):
             resident.index_copy_(0, slots, delta[:e_live].to(resident.dtype))
+
+
+def _gnn_tick(params, features, kind, nmask, esrc, edst, erel, emask, ints,
+              pk: int, ek: int, pi: int, f_live: int, e_live: int,
+              rel_offsets: tuple[int, ...], compute_dtype=None) -> tuple:
+    """Copy the packed delta into the resident mirror
+    (:func:`copy_mirror_delta`; the incident tables follow the edge
+    delta, ``[... | incident_nodes pi | incident_mask pi]``), then run the
+    full forward. Returns ``(logits, probs)``, probs zeroed on dead
+    incident rows."""
+    o = 3 * pk + 5 * ek
+    inc_nodes = ints[o:o + pi]
+    inc_mask = ints[o + pi:o + 2 * pi].to(torch.float32)
+    copy_mirror_delta(ints, pk, ek, f_live, e_live, kind, nmask, esrc, edst,
+                      erel, emask)
     logits = gnn.forward(params, features, kind, nmask, esrc, edst, erel,
                          emask, inc_nodes, rel_offsets=rel_offsets,
                          compute_dtype=compute_dtype)
@@ -160,15 +179,21 @@ class GnnStreamingScorer(StreamingScorer):
     def __init__(self, store: EvidenceGraphStore, settings=None,
                  params: gnn.Params | None = None,
                  now_s: float | None = None,
-                 device: "str | torch.device | None" = None) -> None:
+                 device: "str | torch.device | None" = None,
+                 mesh=None, mesh_from_settings: bool = True) -> None:
         from ..config import get_settings
         cfg = settings or get_settings()
-        if int(cfg.serve_graph_shards) > 1:
-            raise NotImplementedError(
-                f"serve_graph_shards={cfg.serve_graph_shards} with the "
-                "learned scorer: its graph-sharded tick "
-                "(parallel/sharded_streaming.sharded_gnn_tick) is not "
-                "ported yet: ROADMAP item 9b")
+        # a mesh with a real ``graph`` axis serves the sharded learned
+        # tick; a dp-only mesh has no sharded learned mapping (the
+        # incident readout is not dp-sharded here): one device, as before
+        if mesh is not None and ("graph" not in mesh.axis_names
+                                 or mesh.shape["graph"] <= 1):
+            log.warning("gnn_streaming_mesh_unsupported: %s", mesh)
+            if device is None:
+                device = mesh.grid[0, 0]
+            mesh = None
+        if mesh is not None and device is None:
+            device = mesh.grid[0, 0]
         dev = resolve_device(device)
         self._params = resolve_params(params, cfg, dev)
         # previous (params, generation, source) kept for one swap, so a
@@ -208,7 +233,8 @@ class GnnStreamingScorer(StreamingScorer):
             "hidden": int(self._params["embed_b"].shape[0]),
             "layers": len(self._params["layers"]),
             "compute_dtype": self._compute_dtype}
-        super().__init__(store, cfg, now_s=now_s, device=dev)
+        super().__init__(store, cfg, now_s=now_s, device=dev, mesh=mesh,
+                         mesh_from_settings=mesh_from_settings)
         # this scorer's ticks and SLO samples carry the backend that
         # produced the verdict
         self.scope.backend = "gnn"
@@ -226,14 +252,37 @@ class GnnStreamingScorer(StreamingScorer):
         self._gnn_seq = self._synced_seq
         self._mirror_init()
 
+    def _mirror_graph_sharded(self) -> bool:
+        """Whether a (re)mirror of the CURRENT shapes lands sharded."""
+        return self._graph_sharded(self.snapshot.padded_nodes,
+                                   self.snapshot.padded_incidents)
+
     def _mirror_offsets_now(self) -> tuple[int, ...]:
         """The relation-region offsets a re-mirror of the CURRENT store
         derives: both directions of every edge, 1/3 growth slack per
         region and a minimum slice per relation, so first-edge churn of an
         unseen relation lands in a free slot instead of forcing an
-        immediate re-mirror."""
+        immediate re-mirror. On a graph-sharded mirror these are the
+        SHARED per-shard region capacities (the max live count over
+        shards, the ``parallel/partition.py`` contract): one tuple
+        describes every shard."""
         num_rels = len(RelationKind)
         _, edges = self.store._raw()
+        if self._mirror_graph_sharded():
+            from ..parallel.sharded_streaming import shared_shard_offsets
+            g = self._graph_size()
+            nps = self.snapshot.padded_nodes // g
+            counts = np.zeros((g, num_rels), np.int64)
+            for e in edges:
+                srow = self._id_to_idx.get(e.src)
+                drow = self._id_to_idx.get(e.dst)
+                if srow is None or drow is None:
+                    continue
+                # each direction lives on its DESTINATION's owner shard
+                counts[drow // nps, int(e.kind)] += 1
+                counts[srow // nps, int(e.kind)] += 1
+            return shared_shard_offsets(counts, slack=1 / 3,
+                                        min_cap=REL_SLICE_BUCKETS[0])
         counts = np.zeros(num_rels, np.int64)
         for e in edges:
             counts[int(e.kind)] += 2           # both directions
@@ -251,22 +300,38 @@ class GnnStreamingScorer(StreamingScorer):
         last node row. Under churn, directed slots allocate individually
         from their relation's free list, popped from the low end of the
         slice's free tail; a region out of slots falls back to a full
-        re-mirror with re-derived capacities."""
+        re-mirror with re-derived capacities.
+
+        On a graph-sharded mirror the slot space is D stacked per-shard
+        region sets: shard g owns slots ``[g·Pe_shard, (g+1)·Pe_shard)``
+        with the shared offsets per relation. Each directed entry lives on
+        its DESTINATION row's owner shard and stores its dst shard-local;
+        src stays global (the tick's ring assembly resolves it). The fill
+        keeps the same stable dst sort, so a dst's edges keep store order
+        in both layouts, which makes a fresh sharded tick bit-identical
+        to the single-device one."""
         self.mirror_builds += 1
         offs = self._mirror_offsets_now()
         num_rels = len(RelationKind)
         pn = self.snapshot.padded_nodes
-        pe = max(int(offs[-1]), 1)
+        self._mirror_sharded = self._mirror_graph_sharded()
+        g = self._graph_size() if self._mirror_sharded else 1
+        nps = pn // g
+        pe_shard = max(int(offs[-1]), 1)
+        self._pe_shard = pe_shard
+        pe = pe_shard * g
         _, edges = self.store._raw()
         esrc = np.zeros(pe, np.int32)
-        edst = np.full(pe, pn - 1, np.int32)
+        # padding dst pinned to the last (shard-local) row
+        edst = np.full(pe, nps - 1, np.int32)
         erel = np.full(pe, -1, np.int32)
         emask = np.zeros(pe, np.float32)
         self._edge_slot: dict[_EdgeKey, tuple[int, int]] = {}
         self._node_edges: dict[str, set[_EdgeKey]] = {}
-        # (dst, src_row, key, is_fwd) per relation, then dst-sorted
+        # (dst_local, src_row, key, is_fwd) per (shard, relation) region,
+        # then dst-sorted (one region set when unsharded: dst_local == dst)
         directed: list[list[tuple[int, int, _EdgeKey, bool]]] = [
-            [] for _ in range(num_rels)]
+            [] for _ in range(g * num_rels)]
         for e in edges:
             srow = self._id_to_idx.get(e.src)
             drow = self._id_to_idx.get(e.dst)
@@ -274,25 +339,29 @@ class GnnStreamingScorer(StreamingScorer):
                 continue
             key = (e.src, e.dst, int(e.kind))
             r = int(e.kind)
-            directed[r].append((drow, srow, key, True))
-            directed[r].append((srow, drow, key, False))
+            directed[(drow // nps) * num_rels + r].append(
+                (drow % nps, srow, key, True))
+            directed[(srow // nps) * num_rels + r].append(
+                (srow % nps, drow, key, False))
             self._node_edges.setdefault(e.src, set()).add(key)
             self._node_edges.setdefault(e.dst, set()).add(key)
         slots_by_key: dict[_EdgeKey, dict[bool, int]] = {}
         self._free_edge_slots: list[list[int]] = []
-        for r in range(num_rels):
-            ents = directed[r]
-            ents.sort(key=lambda t: t[0])   # stable: dst only
-            fill = int(offs[r])
+        for region in range(g * num_rels):
+            gi, r = divmod(region, num_rels)
+            base = gi * pe_shard
+            ents = directed[region]
+            ents.sort(key=lambda t: t[0])   # stable: dst_local only
+            fill = base + int(offs[r])
             for d, srow, key, fwd in ents:
                 esrc[fill], edst[fill], emask[fill] = srow, d, 1.0
                 erel[fill] = r
                 slots_by_key.setdefault(key, {})[fwd] = fill
                 fill += 1
-            # per-relation free slot lists (allocation stays region-local,
-            # which keeps the static offsets valid)
+            # per-(shard, relation) free slot lists (allocation stays
+            # region-local, which keeps the static offsets valid)
             self._free_edge_slots.append(
-                list(range(int(offs[r + 1]) - 1, fill - 1, -1)))
+                list(range(base + int(offs[r + 1]) - 1, fill - 1, -1)))
         for key, by_dir in slots_by_key.items():
             self._edge_slot[key] = (by_dir[True], by_dir[False])
         self._rel_offsets: tuple[int, ...] = offs
@@ -303,9 +372,10 @@ class GnnStreamingScorer(StreamingScorer):
             self._emask_dev = self._upload(emask)
             self._kind_dev = self._upload(self.snapshot.node_kind)
             self._nmask_dev = self._upload(self.snapshot.node_mask)
-        # directed slot -> (src_row, dst_row, rel_kind, mask)
+        # directed slot -> (src_row, dst_local, rel_kind, mask)
         self._pending_edges: dict[int, tuple[int, int, int, int]] = {}
         self._last_gnn = None
+        self._apply_sharding()   # place a sharded mirror on the mesh
         self._quant_refresh()
 
     # -- the streamed tier's quantized feature table -----------------------
@@ -314,8 +384,9 @@ class GnnStreamingScorer(StreamingScorer):
         """(Re)derive the quantized feature table and its per-column
         scale from the host features, at every mirror (re)build. The scale
         then stays frozen until the next refresh; each tick's delta rows
-        quantize against it (clipped, within the tier's tolerance)."""
-        if not self._feat_quant:
+        quantize against it (clipped, within the tier's tolerance). None
+        on a sharded mirror (the streamed tier is single-device)."""
+        if not self._feat_quant or self._mirror_sharded:
             self._features_q_dev = self._feat_scale_dev = None
             self._feat_scale_host = None
             return
@@ -344,6 +415,29 @@ class GnnStreamingScorer(StreamingScorer):
 
     # -- journal-driven mirror maintenance --------------------------------
 
+    def _nodes_per_shard(self) -> int:
+        return self.snapshot.padded_nodes // (
+            self._graph_size() if self._mirror_sharded else 1)
+
+    def _dst_region(self, kind: int, dst_row: int) -> int:
+        """Free-list index of the region a directed slot targeting
+        ``dst_row`` allocates from: (owner shard, relation) on a sharded
+        mirror, the relation alone otherwise."""
+        if not self._mirror_sharded:
+            return kind
+        return (dst_row // self._nodes_per_shard()) * len(RelationKind) \
+            + kind
+
+    def _slot_region(self, kind: int, slot: int) -> int:
+        """Region index of an EXISTING slot (owner from the slot space)."""
+        if not self._mirror_sharded:
+            return kind
+        return (slot // self._pe_shard) * len(RelationKind) + kind
+
+    def _dst_local(self, row: int) -> int:
+        return row % self._nodes_per_shard() if self._mirror_sharded \
+            else row
+
     def _mirror_add(self, src: str, dst: str, kind: int) -> None:
         key = (src, dst, kind)
         if key in self._edge_slot:
@@ -352,18 +446,20 @@ class GnnStreamingScorer(StreamingScorer):
         drow = self._id_to_idx.get(dst)
         if srow is None or drow is None:
             return   # endpoint removed later in this batch: edge is gone too
-        free = self._free_edge_slots[kind]
-        if len(free) < 2:
-            # the region overflowed: full re-mirror with re-derived
+        rf = self._dst_region(kind, drow)   # fwd entry: dst-owner region
+        rr = self._dst_region(kind, srow)   # rev entry: src-owner region
+        free_f, free_r = self._free_edge_slots[rf], self._free_edge_slots[rr]
+        if len(free_f) < (2 if rf == rr else 1) or len(free_r) < 1:
+            # a region overflowed: full re-mirror with re-derived
             # capacities (the static offsets can't stretch in place)
             self._mirror_init()
             return
-        slot_f, slot_r = free.pop(), free.pop()
+        slot_f, slot_r = free_f.pop(), free_r.pop()
         self._edge_slot[key] = (slot_f, slot_r)
         self._node_edges.setdefault(src, set()).add(key)
         self._node_edges.setdefault(dst, set()).add(key)
-        self._pending_edges[slot_f] = (srow, drow, kind, 1)
-        self._pending_edges[slot_r] = (drow, srow, kind, 1)
+        self._pending_edges[slot_f] = (srow, self._dst_local(drow), kind, 1)
+        self._pending_edges[slot_r] = (drow, self._dst_local(srow), kind, 1)
 
     def _mirror_del(self, key: _EdgeKey) -> None:
         slots = self._edge_slot.pop(key, None)
@@ -377,7 +473,8 @@ class GnnStreamingScorer(StreamingScorer):
                 if not s:
                     del self._node_edges[nid]
         for slot in slots:
-            self._free_edge_slots[kind].append(slot)
+            # back to ITS region (per (shard, relation) when sharded)
+            self._free_edge_slots[self._slot_region(kind, slot)].append(slot)
             self._pending_edges[slot] = (0, 0, -1, 0)
 
     def _drain_edges(self) -> None:
@@ -421,7 +518,14 @@ class GnnStreamingScorer(StreamingScorer):
         self._replayable = True
 
     def _pending_delta_count(self) -> int:
-        # each pending edge entry is one directed slot in the packed delta
+        # each pending edge entry is one directed slot in the packed delta;
+        # on a sharded mirror the delta width follows the MAX per-shard
+        # count (per-shard sub-buckets bound the ladder)
+        if self._mirror_sharded:
+            per = [0] * self._graph_size()
+            for slot in self._pending_edges:
+                per[slot // self._pe_shard] += 1
+            return super()._pending_delta_count() + max(per)
         return super()._pending_delta_count() + len(self._pending_edges)
 
     # -- scoring -----------------------------------------------------------
@@ -470,6 +574,75 @@ class GnnStreamingScorer(StreamingScorer):
         ]).astype(np.int32, copy=False)
         return ints, pk, ek, len(aux_rows), len(ents)
 
+    def _packed_gnn_delta_sharded(self, aux_rows: list[int]
+                                  ) -> tuple[np.ndarray, int, int, list, list]:
+        """Per-shard packed delta for ``sharded_gnn_tick``: aux
+        (kind/nmask) deltas route to their node-owner shard, edge-slot
+        deltas to their slot-owner shard, each with per-shard
+        ``DELTA_BUCKETS`` sub-buckets (width = max over shards); the [Pi]
+        incident tables ride in every shard's row. Store-journal order is
+        kept WITHIN each shard (the router walks the pending maps in
+        insertion order). Returns ``(ints [D, L], pk, ek, f_live per
+        shard, e_live per shard)``."""
+        from ..parallel.sharded_streaming import route_node_delta
+        g = self._graph_size()
+        pi = self.snapshot.padded_incidents
+        nps = self.snapshot.padded_nodes // g
+
+        f_idx, per_aux, pk = route_node_delta(
+            [(r,) for r in aux_rows], nps, g, _DELTA_BUCKETS)
+        kind_v = np.zeros((g, pk), np.int32)
+        nmask_v = np.zeros((g, pk), np.int32)
+        for gi, ents in enumerate(per_aux):
+            for j, (row,) in enumerate(ents):
+                kind_v[gi, j] = self.snapshot.node_kind[row]
+                nmask_v[gi, j] = int(self.snapshot.node_mask[row])
+
+        pe_shard = self._pe_shard
+        per_edge: list[list] = [[] for _ in range(g)]
+        for slot, (srow, dloc, rel, m) in self._pending_edges.items():
+            per_edge[slot // pe_shard].append(
+                (slot % pe_shard, srow, dloc, rel, m))
+        self._pending_edges = {}
+        if max(len(e) for e in per_edge) > _DELTA_BUCKETS[-1]:
+            # a per-shard delta beyond the ladder: a full re-mirror resets
+            # pending entirely
+            self._mirror_init()
+            per_edge = [[] for _ in range(g)]
+            pe_shard = self._pe_shard
+        ek = bucket_for(max(max(len(e) for e in per_edge), 1),
+                        _DELTA_BUCKETS)
+        e_idx = np.full((g, ek), pe_shard, np.int32)
+        e_src = np.zeros((g, ek), np.int32)
+        e_dst = np.zeros((g, ek), np.int32)
+        e_rel = np.full((g, ek), -1, np.int32)
+        e_mask = np.zeros((g, ek), np.int32)
+        for gi, shard_ents in enumerate(per_edge):
+            for j, (sl, s_, d, r, m) in enumerate(shard_ents):
+                e_idx[gi, j], e_src[gi, j], e_dst[gi, j] = sl, s_, d
+                e_rel[gi, j], e_mask[gi, j] = r, m
+        inc_n = np.broadcast_to(
+            self.snapshot.incident_nodes.astype(np.int32), (g, pi))
+        inc_m = np.broadcast_to(
+            self.snapshot.incident_mask.astype(np.int32), (g, pi))
+        ints = np.concatenate(
+            [f_idx, kind_v, nmask_v, e_idx, e_src, e_dst, e_rel, e_mask,
+             inc_n, inc_m], axis=1).astype(np.int32, copy=False)
+        return (ints, pk, ek, [len(e) for e in per_aux],
+                [len(e) for e in per_edge])
+
+    def _sharded_tick_fn(self, pk: int, ek: int):
+        """The sharded learned tick for the CURRENT shapes
+        (``parallel/sharded_streaming.sharded_gnn_tick``)."""
+        from ..parallel.sharded_streaming import sharded_gnn_tick
+        g = self._graph_size()
+        return sharded_gnn_tick(
+            self.mesh, self.snapshot.padded_nodes // g, self._pe_shard,
+            self.snapshot.padded_incidents, pk, ek,
+            rel_offsets=self._rel_offsets,
+            compute_dtype=self._compute_dtype,
+            use_pallas=self._use_fused)
+
     # -- the tick's tier ----------------------------------------------------
 
     def _kernel_tier_ok(self, rel_offsets) -> bool:
@@ -481,9 +654,10 @@ class GnnStreamingScorer(StreamingScorer):
                 and int(offs[-1]) > 0 and tiles_align(offs))
 
     def _fused_ok(self, rel_offsets=None) -> bool:
-        """Whether the fused tier serves: ``gnn_fused_tick`` on and
-        :meth:`_kernel_tier_ok`."""
-        return self._use_fused and self._kernel_tier_ok(rel_offsets)
+        """Whether the fused tier serves: ``gnn_fused_tick`` on, a
+        single-device mirror and :meth:`_kernel_tier_ok`."""
+        return (self._use_fused and not self._mirror_sharded
+                and self._kernel_tier_ok(rel_offsets))
 
     def _dma_ok(self, rel_offsets=None) -> bool:
         """Whether the streamed tier serves: ``gnn_tick_dma`` on,
@@ -493,7 +667,8 @@ class GnnStreamingScorer(StreamingScorer):
         float32 verdicts are the same. ``gnn_feature_quant`` without
         ``gnn_tick_dma`` selects nothing."""
         pn = self.snapshot.padded_nodes
-        return (self._use_dma and self._kernel_tier_ok(rel_offsets)
+        return (self._use_dma and not self._mirror_sharded
+                and self._kernel_tier_ok(rel_offsets)
                 and pn % min(self._dma_node_block, pn) == 0)
 
     def _dispatch_dma(self, args: tuple, pk: int, ek: int, pi: int,
@@ -544,8 +719,11 @@ class GnnStreamingScorer(StreamingScorer):
         launch for the current layout: the roofline prices the variant
         that actually serves (the streamed tiers move their activations
         and quantized tables through device memory, the fused tier does
-        not, the composed tick materializes each layer)."""
+        not, the composed tick materializes each layer; the sharded tick
+        adds its ring)."""
         offs = self._rel_offsets
+        if self._mirror_sharded:
+            return "streaming.gnn_tick.sharded"
         if self._dma_ok(offs):
             if self._feat_quant == "int8":
                 return "streaming.gnn_tick.dma.int8"
@@ -567,13 +745,15 @@ class GnnStreamingScorer(StreamingScorer):
             return
         pi = self.snapshot.padded_incidents
         pn = self.snapshot.padded_nodes
-        pe = int(self._esrc_dev.shape[0])
+        pe = self._pe_shard   # the whole mirror when unsharded
+        shards = {"shards": self._graph_size()} if self._mirror_sharded \
+            else {}
         self._scope_entry = self._tick_entrypoint()
-        self._scope_key = (pn, pi, pe, pk, ek)
+        self._scope_key = (pn, pi, pe, pk, ek) + tuple(shards.values())
         obs_scope.ROOFLINE.model(
             self._scope_entry, self._scope_key,
             lambda: {"pn": pn, "pi": pi, "pe": pe, "pk": pk, "ek": ek,
-                     **self._scope_consts}, pack=self._scope_pack)
+                     **shards, **self._scope_consts}, pack=self._scope_pack)
 
     def dispatch(self) -> tuple:
         """The base tick (shared feature delta + rules score), then the GNN
@@ -582,9 +762,16 @@ class GnnStreamingScorer(StreamingScorer):
         ride the base scorer's staged slab (one host→device copy); under a
         quant tier the aux rows' quantized features are staged beside
         them. Returns the base device outputs; the GNN outputs land in
-        ``_last_gnn``."""
+        ``_last_gnn``.
+
+        On a sharded mirror the base tick (the sharded rules tick, which
+        updates the feature node blocks in place) runs first, then the
+        per-shard GNN delta is packed, uploaded once per device, and
+        ``sharded_gnn_tick`` runs on the same stream."""
         aux_rows = self._pending_feat.keys()
         self._drain_edges()
+        if self._mirror_sharded:
+            return self._dispatch_sharded(list(aux_rows))
         ints, pk, ek, f_live, e_live = self._packed_gnn_delta(aux_rows)
         if self._feat_quant:
             self._dma_stage_fq = self._quant_rows(aux_rows, pk)
@@ -595,7 +782,17 @@ class GnnStreamingScorer(StreamingScorer):
             self._gnn_stage = None
         span = self._last_tick_span   # opened by the base dispatch
         ints_dev, self._staged_gnn_dev = self._staged_gnn_dev, None
-        args = (self._params, self._features_dev, self._kind_dev,
+        features = self._features_dev
+        with self._on_stream():
+            if ints_dev is None:
+                # a base tick on a mesh stages no extra payload: the GNN
+                # delta pays its own copy
+                ints_dev = self._upload(ints)
+            if not isinstance(features, torch.Tensor):
+                # the base features replicated over a mesh the mirror does
+                # not shard over: every block is the whole table
+                features = features.blocks[0, 0]
+        args = (self._params, features, self._kind_dev,
                 self._nmask_dev, self._esrc_dev, self._edst_dev,
                 self._erel_dev, self._emask_dev, ints_dev)
         self._scope_gnn(span, pk, ek)
@@ -606,6 +803,51 @@ class GnnStreamingScorer(StreamingScorer):
         if span is not None:
             span.mark("gnn_dispatch")
         return out
+
+    def _dispatch_sharded(self, aux_rows: list[int]) -> tuple:
+        """:meth:`dispatch` on a sharded mirror (see there)."""
+        self._gnn_stage = None
+        out = super().dispatch()
+        span = self._last_tick_span   # opened by the base dispatch
+        ints, pk, ek, f_live, e_live = self._packed_gnn_delta_sharded(
+            aux_rows)
+        tick = self._sharded_tick_fn(pk, ek)
+        self._scope_gnn(span, pk, ek)
+        with self._on_stream():
+            ints_dev = {d: self._upload(ints)
+                        for d in dict.fromkeys(self.mesh.devices.ravel())}
+            logits, probs = tick(
+                self._params, self._features_dev, self._kind_dev,
+                self._nmask_dev, self._esrc_dev, self._edst_dev,
+                self._erel_dev, self._emask_dev, ints_dev, f_live, e_live)
+        self._last_gnn = (self.params_generation, logits, probs)
+        if span is not None:
+            span.mark("gnn_dispatch")
+        return out
+
+    def _apply_sharding(self) -> None:
+        """The base placement, then a sharded mirror's six arrays as node
+        or slot blocks over ``graph`` (a tensor already placed stays
+        where it is)."""
+        super()._apply_sharding()
+        if not getattr(self, "_mirror_sharded", False):
+            return
+        from ..parallel.compat import place
+        from ..parallel.mesh import graph_sharded
+        gsh = graph_sharded(self.mesh)
+        with self._on_stream():
+            for name in ("_kind_dev", "_nmask_dev", "_esrc_dev", "_edst_dev",
+                         "_erel_dev", "_emask_dev"):
+                t = getattr(self, name, None)
+                if isinstance(t, torch.Tensor):
+                    setattr(self, name, place(t, gsh))
+
+    def adopt_mesh(self, mesh) -> None:
+        """A live reshard of the serving state onto another mesh: not
+        ported yet."""
+        raise NotImplementedError(
+            "adopt_mesh (a live reshard of the learned scorer's mirror) is "
+            "not ported yet: ROADMAP item 9c")
 
     def _tick_handles(self, out: tuple) -> _Tick:
         """In GNN mode the queue tracks the GNN tick's outputs
@@ -707,6 +949,7 @@ class GnnStreamingScorer(StreamingScorer):
     _HOST_STATE_ATTRS = StreamingScorer._HOST_STATE_ATTRS + (
         "_gnn_seq", "_rel_offsets",
         "_edge_slot", "_node_edges", "_free_edge_slots", "_pending_edges",
+        "_mirror_sharded", "_pe_shard",
         # the generation/source stamp travels with the snapshot so a
         # restore serves the generation it captured (the params VALUES
         # ride in the packed device tensors below), and so does the

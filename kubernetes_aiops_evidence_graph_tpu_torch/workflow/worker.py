@@ -61,18 +61,13 @@ def _incident_from_row(row: dict) -> Incident:
 def check_ported(settings: Settings) -> None:
     """Raise ``NotImplementedError`` for a setting whose backing module
     the port does not have yet, naming its ROADMAP item; nothing falls
-    back silently. All of these are off by default. The rules backend
-    serves on a mesh (``mesh_dp``, ``serve_graph_shards``; item 9a); the
-    learned scorer's mesh is item 9b, the shield's and the elastic
-    controller's item 9c."""
+    back silently. All of these are off by default. Both backends serve
+    on a mesh (``mesh_dp``, ``serve_graph_shards``); the shield and the
+    elastic controller on a mesh are item 9c."""
     if int(settings.mesh_dp) <= 1 and int(settings.serve_graph_shards) <= 1:
         return
     where = (f"mesh_dp={settings.mesh_dp}, serve_graph_shards="
              f"{settings.serve_graph_shards}")
-    if settings.rca_backend == "gnn":
-        raise NotImplementedError(
-            f"{where} with rca_backend='gnn': the learned scorer's mesh "
-            "(parallel/sharded_gnn.py) is not ported yet: ROADMAP item 9b")
     if settings.shield_enabled or settings.elastic_enabled:
         raise NotImplementedError(
             f"{where} with shield_enabled={settings.shield_enabled}, "
@@ -198,7 +193,9 @@ class IncidentWorker:
         from ..rca.gnn_streaming import GnnStreamingScorer
         try:
             return GnnStreamingScorer(self.builder.store, self.settings,
-                                      device=self.device)
+                                      device=self.device,
+                                      mesh=self._serving_mesh(),
+                                      mesh_from_settings=False)
         except CheckpointError as exc:
             log.error("gnn_checkpoint_unusable_rules_fallback",
                       error=str(exc))

@@ -43,6 +43,8 @@ def test_every_port_module_imports_without_jax_orbax_pydantic_yaml():
         "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.mesh',\n"
         "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.compat',\n"
         "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.sharded_rules',\n"
+        "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.partition',\n"
+        "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.sharded_gnn',\n"
         "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.sharded_streaming'} <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [k for k in sys.modules if k == {JAX_PKG!r} or k.startswith({JAX_PKG + '.'!r})]\n"

@@ -312,9 +312,15 @@ def test_grads_parity_gate_raises_on_a_mismatch_and_never_falls_back(
     flat["rel_offsets"] = ()
     with pytest.raises(ValueError, match="relation-bucketed"):
         ttrainer.check_grads_parity(serving, flat)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        ttrainer.finetune(serving, prod, sim, steps=2, lr=1e-3,
-                          anchor_weight=1e-3, mesh_shards=2)
+    # the data-parallel fine-tune serves now (tests/test_torch_learn_mesh.py
+    # holds it to the JAX package)
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh, "_HOST_POOL", {"devices": 8,
+                                             "committed": False})
+    out = ttrainer.finetune(serving, prod, sim, steps=2, lr=1e-3,
+                            anchor_weight=1e-3, mesh_shards=2)
+    assert out["sharded"] is True and out["steps"] == 2
+    assert ttrainer.params_finite(out["params"])
 
 
 # -- the loop -----------------------------------------------------------------

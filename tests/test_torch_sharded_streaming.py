@@ -261,8 +261,9 @@ def test_pack_at_two_shards_bit_parity_with_singles_and_jax():
 
 def test_worker_serves_rules_on_a_mesh_and_refuses_what_waits():
     """The worker builds its mesh from the pool for the rules backend
-    (JAX workflow/worker.py:184) and raises naming the item for the
-    learned scorer (9b) and the shield on a mesh (9c)."""
+    (JAX workflow/worker.py:184) and for the learned scorer (:161), and
+    raises naming the item for the shield and the elastic controller on
+    a mesh (9c)."""
     from kubernetes_aiops_evidence_graph_tpu_torch.simulator import (
         generate_cluster)
     from kubernetes_aiops_evidence_graph_tpu_torch.storage import Database
@@ -279,18 +280,24 @@ def test_worker_serves_rules_on_a_mesh_and_refuses_what_waits():
         scorer = worker.serving_scorer()
         assert scorer.mesh is not None and scorer.mesh.shape == shape
         assert scorer._sharded(scorer.snapshot.padded_incidents)
-    for over, item in ((dict(rca_backend="gnn", serve_graph_shards=2),
-                        "item 9b"),
-                       (dict(shield_enabled=True, mesh_dp=2), "item 9c"),
-                       (dict(elastic_enabled=True, serve_graph_shards=2),
-                        "item 9c")):
-        with pytest.raises(NotImplementedError, match=item):
+    # the learned scorer serves on the worker's (1 x 2) mesh; the shield
+    # and the elastic controller on a mesh are still refused
+    gnn_cfg = load_settings(rca_backend="gnn", serve_graph_shards=2)
+    check_ported(gnn_cfg)
+    scorer = IncidentWorker(cluster, Database(":memory:"), settings=gnn_cfg,
+                            device="cpu").serving_scorer()
+    assert scorer.mesh is not None and scorer.mesh.shape == {"dp": 1,
+                                                             "graph": 2}
+    assert scorer._mirror_sharded
+    assert isinstance(scorer._esrc_dev, Sharded)
+    assert len(scorer.rescore()["incident_ids"]) == len(
+        scorer.live_incidents()[0])
+    for over in (dict(shield_enabled=True, mesh_dp=2),
+                 dict(elastic_enabled=True, serve_graph_shards=2),
+                 dict(rca_backend="gnn", shield_enabled=True,
+                      serve_graph_shards=2)):
+        with pytest.raises(NotImplementedError, match="item 9c"):
             check_ported(load_settings(**over))
-    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
-        GnnStreamingScorer)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        GnnStreamingScorer(None, load_settings(serve_graph_shards=2),
-                           device="cpu")
 
 
 def test_sharded_tick_priced_with_its_sum_and_routing_recorded():
