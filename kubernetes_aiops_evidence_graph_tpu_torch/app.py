@@ -63,7 +63,7 @@ class AiopsApp:
         device: Any = None,
     ) -> None:
         self.settings = settings or get_settings()
-        check_ported(self.settings)
+        check_ported(self.settings, device)
         self.device = resolve_device(device)
         configure(self.settings.log_level)
         self.cluster = cluster
@@ -446,14 +446,12 @@ class AiopsApp:
 def main() -> None:  # pragma: no cover - manual entrypoint
     """Serve the platform on the CUDA device. KAEG_CLUSTER_BACKEND selects
     the evidence source (fake = hermetic demo cluster, kubernetes = live
-    K8s/Prometheus/Loki, collectors/live.py); KAEG_NUM_PROCESSES > 1 (a
-    multi-host process group) is ROADMAP item 9c and raises."""
-    import os
-    nproc = int(os.environ.get("KAEG_NUM_PROCESSES", "1") or 1)
-    if nproc > 1:
-        raise NotImplementedError(
-            f"KAEG_NUM_PROCESSES={nproc}: multi-host serving "
-            "(parallel/multihost.py) is not ported yet: ROADMAP item 9c")
+    K8s/Prometheus/Loki, collectors/live.py); KAEG_COORDINATOR /
+    _NUM_PROCESSES / _PROCESS_ID join a multi-process group
+    (parallel/multihost.py, NCCL; each rank serves on its own card)
+    before any other device use."""
+    from .parallel import init_distributed
+    init_distributed()
     settings = get_settings()
     if settings.cluster_backend == "kubernetes":
         from .collectors.live import LiveClusterBackend

@@ -145,15 +145,30 @@ class Settings:
     # deterministic seeded jitter (workflow/engine.RetryPolicy semantics)
     shield_retry_attempts: int = 2
     shield_retry_backoff_s: float = 0.05
+    # shard-loss survival (rca/heal.py) on a graph-sharded mesh: a
+    # shard-localized fault feeds a per-position CircuitBreaker;
+    # mesh_shard_failure_threshold CONSECUTIVE failures on one position
+    # classify it persistently failed, and the shield's mesh_heal rung
+    # (between journal replay and full rebuild) re-places the resident
+    # state onto a survivor mesh at the largest viable D' < D. After
+    # mesh_heal_cooldown_s the position's breaker admits its half-open
+    # probe and the mesh re-expands D' -> D. Both directions are
+    # write-ahead journaled (a crash mid-heal recovers to a consistent
+    # shard count)
+    mesh_heal_enabled: bool = True
+    mesh_shard_failure_threshold: int = 3
+    mesh_heal_cooldown_s: float = 5.0
     # attestation at snapshot boundaries: a checksum fold of the resident
-    # node tables on the device against the host mirrors; a silently
-    # corrupted block is repaired in place from the host truth
+    # node tables on the device against the host mirrors, per shard
+    # block; a silently corrupted block is repaired in place from the
+    # host truth
     mesh_attest: bool = True
 
     # --- serving meshes (parallel/): the rules scorer serves on a
     # graph-sharded and/or data-parallel mesh, the learned scorer on the
-    # graph axis; with shield_enabled or elastic_enabled (ROADMAP item
-    # 9c) a value above 1 raises ---
+    # graph axis, with or without the shield and the elastic controller;
+    # the positions may repeat one card but not span several (serving
+    # across cards is ROADMAP item 9d) ---
     serve_graph_shards: int = 1
     mesh_dp: int = 1
 
@@ -170,9 +185,9 @@ class Settings:
     # controller (rca/elastic.py) ---
     # the ElasticController reads pipeline occupancy / stall seconds, the
     # admission shed-ratio EWMA and the roofline drift of one pack, and
-    # gates D -> D' scale decisions behind hysteresis + dwell. On one card
-    # the shard ladder is (1,), so it decides and never steps; a step
-    # (shield.scale_mesh) is ROADMAP item 9c
+    # gates D -> D' scale decisions behind hysteresis + dwell; a step
+    # re-shards through the shield's scale_mesh over the shield's pool of
+    # positions
     elastic_enabled: bool = False
     # both directions must hold for dwell_s before a scale fires
     elastic_dwell_s: float = 10.0
@@ -264,6 +279,13 @@ class Settings:
 _ENV_PREFIX = "KAEG_"
 
 
+_PROCESS_GROUP_ENV = frozenset({
+    "KAEG_COORDINATOR", "KAEG_NUM_PROCESSES", "KAEG_PROCESS_ID",
+    "KAEG_AUTO_DISTRIBUTED"})
+"""Variables ``parallel/multihost.init_distributed`` reads: not settings,
+and not warned about."""
+
+
 def load_settings(**overrides: Any) -> Settings:
     """Build Settings from KAEG_* env vars, then apply explicit overrides
     (an override that names no field raises TypeError)."""
@@ -286,7 +308,8 @@ def load_settings(**overrides: Any) -> Settings:
         else:
             kwargs[f.name] = raw
     ignored = sorted(k for k in os.environ
-                     if k.startswith(_ENV_PREFIX) and k not in known)
+                     if k.startswith(_ENV_PREFIX) and k not in known
+                     and k not in _PROCESS_GROUP_ENV)
     if ignored:
         warnings.warn(f"{', '.join(ignored)}: no such setting in this "
                       "package; ignored", stacklevel=2)

@@ -175,7 +175,7 @@ def _data_mesh(shards: int, device: torch.device):
     serving params' platform: the CPU's host positions (grown as serving
     grows them, ``parallel/mesh.ensure_host_devices``), or positions that
     repeat the params' card (a mesh over several cards is ROADMAP item
-    9c, as for serving). None when the pool cannot carry it."""
+    9d, as for serving). None when the pool cannot carry it."""
     from ..parallel.mesh import (check_one_card, ensure_host_devices,
                                  host_devices, make_mesh)
     device = torch.device(device)

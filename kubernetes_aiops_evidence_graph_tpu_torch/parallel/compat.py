@@ -12,6 +12,10 @@ calls:
   order ``0..D-1`` (on the first position's device, then handed to every
   position of the group);
 * :func:`concat_dp`: the dp positions' outputs concatenated in row order;
+* :func:`psum_dp`: the sum over ``dp``, also across the processes of a
+  ``torch.distributed`` group (a mesh from
+  ``parallel/multihost.make_multihost_mesh``): every row's tensor is
+  gathered in rank order and summed in position order;
 * the halo collectives of the learned path over ``graph``:
   :func:`ring_shift` (every position's block moves one hop,
   ``(g -> g+1) mod D``) and :func:`all_gather` (the row's blocks
@@ -21,7 +25,10 @@ calls:
   collective census.
 
 No floating-point atomics, and each sum runs in a fixed order, so results
-are the same from run to run.
+are the same from run to run. On a mesh that spans processes, a process
+places, runs and sums only the positions it holds (``Mesh.ranks``); the
+``graph`` collectives stay inside one process, as ``make_multihost_mesh``
+keeps the graph axis on each process's own positions.
 """
 from __future__ import annotations
 
@@ -30,8 +37,9 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .mesh import Mesh, Placement
+from .mesh import Mesh, Placement, process_index
 
 ring_hops = 0
 """:func:`ring_shift` calls so far (one hop of every block of the mesh
@@ -58,10 +66,13 @@ class Position:
 
 
 def positions(mesh: Mesh) -> list[Position]:
-    """Every position in row-major order."""
+    """Every position this process holds, in row-major order."""
     grid = mesh.grid
+    ranks = None if mesh.ranks is None else mesh.ranks.reshape(grid.shape)
+    me = process_index()
     return [Position(mesh, i, g, grid[i, g])
-            for i in range(grid.shape[0]) for g in range(grid.shape[1])]
+            for i in range(grid.shape[0]) for g in range(grid.shape[1])
+            if ranks is None or ranks[i, g] == me]
 
 
 class Sharded:
@@ -78,6 +89,22 @@ class Sharded:
 
     def block(self, pos: Position) -> Any:
         return self.blocks[pos.dp, pos.graph]
+
+
+def whole(x: "torch.Tensor | Sharded") -> torch.Tensor:
+    """The tensor a :class:`Sharded` lays out, on its first position's
+    device: the blocks of dp row 0 concatenated in ``graph`` position
+    order (a graph split), of graph column 0 in ``dp`` row order (a dp
+    split), or position (0, 0)'s replica. A plain tensor passes as it
+    is."""
+    if not isinstance(x, Sharded):
+        return x
+    blocks, axis = x.blocks, x.placement.axis
+    if axis is None:
+        return blocks[0, 0]
+    row = blocks[0, :] if axis == "graph" else blocks[:, 0]
+    dev = row[0].device
+    return torch.cat([b.to(dev) for b in row])
 
 
 def _blocks_of(x: torch.Tensor, n: int) -> list[torch.Tensor]:
@@ -144,6 +171,56 @@ def psum(parts: np.ndarray, mesh: Mesh) -> np.ndarray:
         for g in range(grid.shape[1]):
             out[i, g] = total if grid[i, g] == dev else total.to(grid[i, g])
     return out
+
+
+def psum_dp(parts: np.ndarray, mesh: Mesh) -> np.ndarray:
+    """Sum over the ``dp`` axis: for each graph column, the tensors of rows
+    ``0..dp-1`` added in that order, the sum handed to every position of
+    the column this process holds (on its own device). ``parts`` is a
+    ``(dp, graph)`` object grid filled at this process's positions.
+
+    Across the processes of a ``torch.distributed`` group the rows are
+    first all-gathered in rank order (each rank's rows in position order,
+    the host-major order of ``make_multihost_mesh``) and then summed in
+    position order on every rank: neither gloo's nor NCCL's all-reduce
+    fixes its order of addition, so the sum is not left to them. Gloo
+    moves CUDA tensors only for broadcast and all-reduce, so on a gloo
+    group the rows travel through host copies (and the sum returns to
+    the positions' devices); NCCL gathers them on the card."""
+    grid = mesh.grid
+    multi = mesh.ranks is not None
+    ranks = (mesh.ranks.reshape(grid.shape) if multi
+             else np.zeros(grid.shape, np.int64))
+    me = process_index() if multi else 0
+    out = np.empty(grid.shape, dtype=object)
+    for g in range(grid.shape[1]):
+        mine = [i for i in range(grid.shape[0]) if ranks[i, g] == me]
+        if not mine:
+            continue
+        rows = [parts[i, g] for i in mine]
+        if multi:
+            rows = _gather_rows(rows, ranks[:, g])
+        dev = grid[mine[0], g]
+        total = rows[0].to(dev)
+        for r in rows[1:]:
+            total = total + r.to(dev)
+        for i in mine:
+            out[i, g] = total if grid[i, g] == dev else total.to(grid[i, g])
+    return out
+
+
+def _gather_rows(rows: list, row_ranks: np.ndarray) -> list:
+    """Every rank's ``rows`` (equal shapes), in rank order: one
+    ``all_gather`` of this rank's stacked rows. Through the host on a
+    gloo group, on the rows' card on NCCL."""
+    local = torch.stack(rows)
+    via_host = dist.get_backend() == "gloo" and local.device.type != "cpu"
+    send = local.cpu() if via_host else local
+    counts = np.bincount(row_ranks, minlength=dist.get_world_size())
+    bufs = [torch.empty((int(c),) + tuple(send.shape[1:]), dtype=send.dtype,
+                        device=send.device) for c in counts]
+    dist.all_gather(bufs, send)
+    return [r for buf in bufs for r in buf]
 
 
 def concat_dp(outs: np.ndarray, mesh: Mesh) -> tuple:

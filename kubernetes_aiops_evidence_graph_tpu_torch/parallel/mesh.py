@@ -12,7 +12,13 @@ The framework's two parallel axes (SURVEY.md §2.4):
 A :class:`Mesh` is a grid of positions, each a ``torch.device``. A device
 may stand at several positions: on one card (or on the CPU) a mesh of D
 positions exercises the layout, the routing and the split kernels of a
-D-way mesh, though not the copies between cards. Placements
+D-way mesh, though not the copies between cards. So a ``torch.device``
+cannot name a position: each position carries its index into the POOL
+the mesh was built from (``pool_index``), the identity a heal's exclusion
+bookkeeping keys on; a mesh that spans the processes of a
+``torch.distributed`` group (``parallel/multihost.py``) also names the
+rank of the process holding each position (``ranks``).
+Placements
 (:func:`replicated`, :func:`dp_sharded`, :func:`graph_sharded`) say how a
 tensor splits into contiguous blocks over an axis; ``parallel/compat.py``
 places tensors and runs per-position work and the collectives.
@@ -30,6 +36,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 
@@ -70,28 +77,51 @@ def device_pool(device: "str | torch.device | None" = None
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def canonical_device(d) -> torch.device:
+    """``d`` as a position names it: a CUDA device with its card's index,
+    so positions compare equal to tensors' devices."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def _grid(devices, shape: tuple[int, ...]) -> np.ndarray:
     arr = np.empty(len(devices), dtype=object)
     for i, d in enumerate(devices):
-        d = torch.device(d)
-        if d.type == "cuda" and d.index is None:
-            # name the card, so positions compare equal to tensors' devices
-            d = torch.device("cuda", torch.cuda.current_device())
-        arr[i] = d
+        arr[i] = canonical_device(d)
     return arr.reshape(shape)
+
+
+def process_index() -> int:
+    """This process's rank in the ``torch.distributed`` group (0 when no
+    group was formed)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
 
 
 class Mesh:
     """A grid of device positions with named axes (``("dp", "graph")`` or
-    ``("dp",)``). ``shape`` maps each axis name to its size."""
+    ``("dp",)``). ``shape`` maps each axis name to its size.
+    ``pool_index`` (same shape) names each position's index in the pool
+    its devices came from (default: its row-major position, the devices
+    given being the pool); ``ranks`` the process holding it, or None
+    (the default) for a mesh whose positions all live in this process."""
 
-    def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...]):
+    def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...],
+                 pool_index=None, ranks=None):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(axis_names):
             raise ValueError(f"{devices.ndim}-d devices for axes {axis_names}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
+        self.pool_index = (np.arange(devices.size) if pool_index is None
+                           else np.asarray(pool_index, np.int64)
+                           ).reshape(devices.shape)
+        self.ranks = (None if ranks is None
+                      else np.asarray(ranks, np.int64).reshape(devices.shape))
 
     @property
     def size(self) -> int:
@@ -106,7 +136,8 @@ class Mesh:
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, "
-                f"{[str(d) for d in self.devices.ravel()]})")
+                f"{[str(d) for d in self.devices.ravel()]}, pool "
+                f"{self.pool_index.ravel().tolist()})")
 
 
 class MeshUnavailable(RuntimeError):
@@ -123,13 +154,13 @@ def check_one_card(mesh: Mesh) -> Mesh:
     pinned slab and orders its copies, scatters and folds on the first
     card's scorer stream alone, so positions on further cards would read
     the slab unordered. Positions that repeat one card (or the CPU) are
-    served. Multi-card serving is ROADMAP item 9c."""
+    served. Multi-card serving is ROADMAP item 9d."""
     cards = {d for d in mesh.devices.ravel() if d.type == "cuda"}
     if len(cards) > 1:
         raise NotImplementedError(
             f"a serving mesh over {len(cards)} CUDA devices "
             f"({sorted(str(d) for d in cards)}): serving on more than one "
-            "card is not ported yet: ROADMAP item 9c")
+            "card is not ported yet: ROADMAP item 9d")
     return mesh
 
 

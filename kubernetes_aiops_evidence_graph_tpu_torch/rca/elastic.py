@@ -13,13 +13,10 @@ and gates D -> D' decisions behind two hysteresis + dwell gates (the
 pattern of ``ingestion/admission.StormMode``): sustained pressure for
 ``elastic_dwell_s`` scales up, sustained calm scales down, and a flapping
 signal never flaps the mesh. Every target rides the divisor ladder: D'
-divides the pack's ``padded_nodes`` and fits the devices a serving mesh
-may span.
-
-On one card that ladder is ``(1,)``, so ``observe()`` decides and never
-steps. A step re-shards the resident state through the shield's
-``scale_mesh`` after ``prewarm`` built the survivor mesh; both belong to
-multi-device serving (ROADMAP item 9c) and raise until then.
+divides the pack's ``padded_nodes`` and fits the shield's pool of
+positions less the excluded ones. A step re-shards the resident state
+through the shield's ``scale_mesh`` after ``prewarm`` built the target
+mesh (nothing to compile: a CUDA kernel builds once).
 
 The controller never spawns its own thread: ``observe()`` is called from
 whatever cadence the host already has (a worker loop, a harness, a test
@@ -36,12 +33,6 @@ from ..observability import metrics as obs_metrics
 from ..observability import scope as obs_scope
 
 log = get_logger("elastic")
-
-
-def serving_devices() -> int:
-    """Devices a serving mesh may span: one card. Multi-device serving
-    (``parallel/``) is ROADMAP item 9c."""
-    return 1
 
 
 class _HysteresisGate:
@@ -139,10 +130,11 @@ class ElasticController:
 
     def ladder(self) -> tuple[int, ...]:
         """Viable shard counts: divisors of the pack's ``padded_nodes``
-        that fit within the non-excluded serving devices, ascending."""
+        that fit within the shield's pool less its excluded positions,
+        ascending."""
         sc = self.shield.scorer
         pn = int(sc.snapshot.padded_nodes)
-        avail = serving_devices() - len(
+        avail = len(self.shield.pool) - len(
             getattr(self.shield, "_mesh_excluded", ()))
         return tuple(d for d in range(1, max(avail, 1) + 1)
                      if pn % d == 0)
@@ -160,13 +152,20 @@ class ElasticController:
 
     # -- execution ---------------------------------------------------------
 
-    def prewarm(self, target_shards: int) -> None:
+    def prewarm(self, target_shards: int):
         """Build the survivor mesh at the TARGET shard count before the
-        scale event. A mesh is multi-device serving: raises naming ROADMAP
-        item 9c (``heal.survivor_mesh``)."""
+        scale event, from the shield's pool less its excluded positions,
+        and check it can carry the target. The JAX package compiles the
+        tick variants here; a CUDA kernel builds once, so nothing else is
+        warmed. Returns the mesh (None for one shard)."""
         from . import heal as heal_mod
         excluded = getattr(self.shield, "_mesh_excluded", ())
-        heal_mod.survivor_mesh(int(target_shards), excluded)
+        mesh = heal_mod.survivor_mesh(int(target_shards), excluded,
+                                      self.shield.pool)
+        if mesh is None and int(target_shards) > 1:
+            raise RuntimeError(f"prewarm: the pool cannot carry "
+                               f"{target_shards} shards")
+        return mesh
 
     def _cooled(self, now: float) -> bool:
         return (self._last_scale_t is None

@@ -33,8 +33,8 @@ Stages (where the hooks fire):
                        (the shield's shard-loss classifier keys on it);
                        ``kind="shard_corrupt_silent"`` corrupts the block
                        and returns — the class only the attestation fold
-                       can localize before it serves. One card is one
-                       shard; a graph-sharded mesh is ROADMAP item 9c
+                       can localize before it serves. On a graph-sharded
+                       mesh the block is one position's, on its device
 
 graft-storm widened the harness past the tick path — the ingest and
 learner paths previously had ZERO fault coverage:
@@ -274,28 +274,49 @@ class FaultInjector:
 
     @staticmethod
     def _corrupt_shard(scorer: Any, shard: int) -> int:
-        """Kill exactly ONE shard's node block of the resident feature
-        tensor, in place on the scorer's own device, so the attestation
-        fold must flag exactly that block. One card serves one shard, so
-        the block is the whole table and every ``shard`` wraps to 0 (a
-        graph-sharded mesh is ROADMAP item 9c). Returns the position
-        corrupted."""
+        """Kill exactly ONE mesh position's node block of the resident
+        feature table, in place on that position's device: the feature rows
+        the shard owns go NaN while every other block keeps its bits, so
+        the shard-loss classifier can localize the fault and the
+        attestation fold must flag exactly that block. On a graph-sharded
+        table the block is position ``(0, shard)``'s; on a table whole at
+        every position (one device, or a mesh the bucket does not divide)
+        the same rows are poisoned in every replica. ``shard`` wraps over
+        the mesh's graph size. Returns the position corrupted."""
+        from ..parallel.compat import Sharded
         feats = getattr(scorer, "_features_dev", None)
-        if feats is not None:
-            with _on_scorer_stream(scorer):
-                feats.fill_(float("nan"))
-        return 0
+        if feats is None:
+            return 0
+        g = max(int(scorer._graph_size()), 1) \
+            if hasattr(scorer, "_graph_size") else 1
+        shard = int(shard) % g
+        with _on_scorer_stream(scorer):
+            if isinstance(feats, Sharded) and feats.placement.axis == "graph":
+                feats.blocks[0, shard].fill_(float("nan"))
+                return shard
+            tables = (feats.blocks.ravel() if isinstance(feats, Sharded)
+                      else (feats,))
+            for t in tables:
+                rows = t.shape[0] // g
+                t[shard * rows:(shard + 1) * rows] = float("nan")
+        return shard
 
     @staticmethod
     def _corrupt_resident(scorer: Any) -> None:
         """Simulate the resident buffers dying with the device: the
         feature tensor (the only float32 resident input every verdict
-        folds) is replaced by NaNs on the scorer's device, so any path
-        that keeps serving from this state is caught by the finite
-        guards."""
+        folds) is replaced by NaNs on the scorer's device (every block of
+        it on a mesh), so any path that keeps serving from this state is
+        caught by the finite guards."""
+        from ..parallel.compat import Sharded
         feats = getattr(scorer, "_features_dev", None)
-        if feats is not None:
-            with _on_scorer_stream(scorer):
+        if feats is None:
+            return
+        with _on_scorer_stream(scorer):
+            if isinstance(feats, Sharded):
+                for t in feats.blocks.ravel():
+                    t.fill_(float("nan"))
+            else:
                 scorer._features_dev = torch.full_like(feats, float("nan"))
 
 

@@ -843,11 +843,28 @@ class GnnStreamingScorer(StreamingScorer):
                     setattr(self, name, place(t, gsh))
 
     def adopt_mesh(self, mesh) -> None:
-        """A live reshard of the serving state onto another mesh: not
-        ported yet."""
-        raise NotImplementedError(
-            "adopt_mesh (a live reshard of the learned scorer's mirror) is "
-            "not ported yet: ROADMAP item 9c")
+        """Live resharding for the learned scorer. The base reshard
+        re-derives the features and evidence tables from host truth at
+        the new placement; the edge mirror additionally RE-BUCKETS (the
+        per-(shard, relation) regions, shard-local dst rows and shared
+        offsets are all functions of D), so :meth:`_mirror_init` re-places
+        every edge on its dst-owner shard under the new mesh and resets
+        kind/nmask from the host snapshot: the dst-sorted layout a fresh
+        D' build lays out, which is why the healed scorer serves the
+        verdicts of a fresh D' build. A mesh with no real ``graph`` axis
+        serves the single-device mirror (``None``)."""
+        if mesh is not None and ("graph" not in mesh.axis_names
+                                 or mesh.shape["graph"] <= 1):
+            mesh = None
+        # the OLD layout's mirror cannot be placed on the new mesh (its
+        # stacked slot space is sized for the old D): drop it so the base
+        # reshard's placement skips it, then rebuild at the new layout
+        self._mirror_sharded = False
+        for name in ("_kind_dev", "_nmask_dev", "_esrc_dev", "_edst_dev",
+                     "_erel_dev", "_emask_dev"):
+            setattr(self, name, None)
+        super().adopt_mesh(mesh)
+        self._mirror_init()
 
     def _tick_handles(self, out: tuple) -> _Tick:
         """In GNN mode the queue tracks the GNN tick's outputs
@@ -980,10 +997,11 @@ class GnnStreamingScorer(StreamingScorer):
             *gnn.flat_params(self._params).values()]
 
     def _adopt_resident(self, parts: list) -> None:
-        super()._adopt_resident(parts)
+        # the mirrors first: the base's placement then lays them out too
         m = 4 + self._MIRROR_ARRAYS
         (self._kind_dev, self._nmask_dev, self._esrc_dev, self._edst_dev,
          self._erel_dev, self._emask_dev) = parts[4:m]
+        super()._adopt_resident(parts)
         keys = list(gnn.flat_params(self._params))
         nq = len(parts) - m - len(keys)
         want = {"": 0, "bfloat16": 1}.get(self._feat_quant, 2)

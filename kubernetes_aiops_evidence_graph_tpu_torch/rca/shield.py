@@ -26,8 +26,10 @@ layer gives it three pillars:
    ladder: kernel fallback (the learned tick's tiers, streamed → fused →
    composed, which leave the resident state alike and serve the same
    top-1), pipeline fallback (depth N →
-   depth 1, bit-identical), journal-replay recovery, full store-derived
-   rebuild, and finally (learned scorer only) the rules scorer. Every
+   depth 1, bit-identical), journal-replay recovery, on a graph-sharded
+   mesh the live reshard around a persistently failed position
+   (``mesh_heal``, rca/heal.py), full store-derived rebuild, and finally
+   (learned scorer only) the rules scorer. Every
    transition is counted in observability/metrics.py and surfaced in the
    rescore() result. A finite guard rejects NaN/inf verdicts before they
    serve: the staged batch is journaled as quarantined and the tick
@@ -43,10 +45,20 @@ those is paired with a journal replay.
 The snapshot pack and unpack (:func:`_snapshot_pack` /
 :func:`_snapshot_unpack`) and the attestation fold (rca/heal.py) are torch
 ops on the scorer's device; the tensors they move are the ones the hand
-kernels read and write. Live resharding of a graph-sharded mesh (the
-JAX package's ``mesh_heal`` ladder rung, its shard classifier, and
-``mesh_heal``/``reexpand``/``scale_mesh``) waits for multi-device serving,
-ROADMAP item 9c: one card serves one shard, and the public methods raise.
+kernels read and write. On a mesh the pack gathers each table's blocks in
+position order, the snapshot records the mesh shape it was captured at,
+and the attestation folds each position's block where it lies.
+
+**The mesh.** A shield around a scorer on a ``(1 x D)`` mesh classifies
+shard-localized faults per position (``heal.ShardHealthTracker``); a
+persistently failed position walks the ``mesh_heal`` rung, which reshards
+onto the survivors of the shield's POOL of positions (``pool``, default
+the scorer's platform's, ``parallel/mesh.device_pool``) at the largest
+viable D'. After the cooldown the mesh re-expands to its home D, and
+:meth:`ShieldedScorer.scale_mesh` is the elastic controller's load-driven
+reshard through the same seam. All three journal a ``mesh_heal`` record
+(``force_sync``) BEFORE they apply, so recovery lands on the journaled
+shard count.
 """
 from __future__ import annotations
 
@@ -77,14 +89,14 @@ log = get_logger("shield")
 _RETRIABLE_STAGES = frozenset(
     {"staging", "journal_append", "snapshot_write", "fetch"})
 
-# the degradation ladder, in escalation order. A graph-sharded mesh adds
-# a ``mesh_heal`` rung between journal replay and the full rebuild
-# (multi-device serving, ROADMAP item 9c)
-LADDER = ("kernel_fallback", "sync_depth1", "journal_replay",
+# the degradation ladder, in escalation order. The ``mesh_heal`` rung
+# sits between journal replay and the full rebuild: once the per-shard
+# classifier (rca/heal.ShardHealthTracker) has declared a mesh position
+# persistently failed, replaying onto the SAME mesh is futile, and
+# re-placing the state onto a survivor mesh at D' < D is cheaper than the
+# store-derived rebuild
+LADDER = ("kernel_fallback", "sync_depth1", "journal_replay", "mesh_heal",
           "full_rebuild", "rules_fallback")
-
-_MESH_ITEM = ("live resharding of a graph-sharded serving mesh "
-              "(multi-device serving) is not ported yet: ROADMAP item 9c")
 
 # one int32 per element: float32 bit for bit, 16-bit floats through int16
 # (sign-extended, truncated back on unpack), small ints and bool widened
@@ -105,8 +117,11 @@ def _as_int32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _snapshot_layout(tensors) -> tuple:
-    """``((shape, dtype name), ...)`` of the tensors a pack carries: what
-    :func:`_snapshot_unpack` needs to cut and reinterpret the flat buffer."""
+    """``((shape, dtype name), ...)`` of the tensors a pack carries (a
+    table on a mesh by its whole shape): what :func:`_snapshot_unpack`
+    needs to cut and reinterpret the flat buffer."""
+    from ..parallel.compat import whole
+    tensors = [whole(t) for t in tensors]
     return tuple((tuple(int(d) for d in t.shape),
                   str(t.dtype).removeprefix("torch."))
                  for t in tensors)
@@ -117,10 +132,13 @@ def _snapshot_pack(*tensors: torch.Tensor) -> torch.Tensor:
     device, so a snapshot pays a single device→host copy however many
     tensors the scorer carries: float32 viewed as int32 bit for bit (NaN
     payloads included), bf16/f16 through int16, small ints and bool
-    widened, everything raveled and concatenated. For float32, int32 and
-    bool tensors this is the JAX package's ``_snapshot_pack`` buffer
+    widened, everything raveled and concatenated. A table on a mesh
+    (``parallel/compat.Sharded``) packs whole, its blocks gathered in
+    position order onto its first position's device. For float32, int32
+    and bool tensors this is the JAX package's ``_snapshot_pack`` buffer
     element for element."""
-    return torch.cat([_as_int32(t) for t in tensors])
+    from ..parallel.compat import whole
+    return torch.cat([_as_int32(whole(t)) for t in tensors])
 
 
 def _snapshot_unpack(flat: torch.Tensor, layout) -> list:
@@ -166,12 +184,8 @@ class ShieldedScorer:
     """
 
     def __init__(self, scorer, settings: "Settings | None" = None,
-                 directory: "str | None" = None, injector=None) -> None:
-        if getattr(scorer, "mesh", None) is not None:
-            raise NotImplementedError(
-                "a shield around a scorer on a mesh (its snapshot, replay "
-                "and attestation over D blocks) is not ported yet: "
-                "ROADMAP item 9c")
+                 directory: "str | None" = None, injector=None,
+                 pool=None) -> None:
         self.scorer = scorer
         self.settings = settings or get_settings()
         self.injector = injector
@@ -242,6 +256,42 @@ class ShieldedScorer:
         self.breaker_skips = 0
         self._last_run_failures = 0
         self.attest_repairs = 0
+        # shard-loss survival: per-position health and the live-reshard
+        # bookkeeping. ``_pool`` is the list of positions the survivor
+        # meshes are cut from (resolved on first use when not given);
+        # ``_mesh_home`` the shard count to re-expand to; ``_mesh_excluded``
+        # the pool indices currently healed AROUND; ``_heal_gen`` the
+        # monotonic generation every journaled mesh_heal record carries
+        # (compaction and replay key on it, as on params_swap)
+        from .heal import ShardHealthTracker
+        self.health = ShardHealthTracker(
+            failure_threshold=self.settings.mesh_shard_failure_threshold,
+            cooldown_s=self.settings.mesh_heal_cooldown_s)
+        if pool is not None:
+            from ..parallel.mesh import canonical_device
+            pool = [canonical_device(d) for d in pool]
+        self._pool = pool
+        self._mesh_home = scorer._graph_size()
+        self._mesh_excluded: tuple[int, ...] = ()
+        self._heal_gen = 0
+        self.heals = 0
+        self.reexpansions = 0
+        self.last_heal_seconds = 0.0
+        self.scale_events = 0
+        self.last_scale_seconds = 0.0
+
+    @property
+    def pool(self) -> list:
+        """The positions survivor meshes are cut from: the pool given to
+        the constructor, else the default pool of the scorer's platform.
+        On CUDA that default is the scorer's own card: serving on more
+        than one card is ROADMAP item 9d."""
+        if self._pool is None:
+            from ..parallel.mesh import canonical_device, device_pool
+            dev = canonical_device(self.scorer.device)
+            self._pool = ([dev] if dev.type == "cuda" else
+                          [canonical_device(d) for d in device_pool(dev)])
+        return self._pool
 
     # -- delegation --------------------------------------------------------
 
@@ -265,6 +315,7 @@ class ShieldedScorer:
 
     def rescore(self, newest: bool = False) -> dict:
         with self._lock:
+            self._maybe_reexpand()
             if newest:
                 return self._run_with_recovery(
                     lambda: self._tick_rescore(newest=True))
@@ -276,6 +327,7 @@ class ShieldedScorer:
         outright and the deltas stay in the store journal for the
         half-open probe (or any verdict-boundary call) to drain."""
         with self._lock:
+            self._maybe_reexpand()
             if not self.breaker.allow():
                 return self._breaker_skip()
             try:
@@ -475,6 +527,11 @@ class ShieldedScorer:
                 continue
             self._watchdog(time.perf_counter() - t0)
             self._last_run_failures = state["failures"]
+            if state["failures"] == 0:
+                # a CLEAN pass, not one that limped through recovery:
+                # transient shard faults reset and half-open probes close
+                # (the transient/persistent line the classifier draws)
+                self.health.record_clean_pass()
             if state["failures"] and self.tier not in ("rules_fallback",
                                                        "breaker_open"):
                 self.tier = "steady"
@@ -490,6 +547,12 @@ class ShieldedScorer:
             raise exc
         stage = getattr(exc, "stage", "")
         suspect = stage not in _RETRIABLE_STAGES
+        shard = getattr(exc, "shard", None)
+        if shard is not None:
+            # the fault is localized to ONE mesh position: N consecutive
+            # failures there open its breaker, which turns the ladder from
+            # replay to mesh_heal
+            self.health.record_failure(int(shard))
         if stage in ("dispatch", "execute", "pack", ""):
             # dispatch-class (or unattributed device-path) failure feeds
             # the circuit breaker; crossing the consecutive-failure
@@ -588,8 +651,19 @@ class ShieldedScorer:
                 self._try_recover()
             return True
         if step == "journal_replay":
+            if self._heal_ready() is not None:
+                # a position is CLASSIFIED persistently failed: replaying
+                # the same state onto it is futile, the mesh_heal rung
+                # takes over
+                return False
             self._transition(step)
             return self._try_recover()
+        if step == "mesh_heal":
+            pos = self._heal_ready()
+            if pos is None:
+                return False
+            self._transition(step)
+            return self._try_heal(pos)
         if step == "full_rebuild":
             self._transition(step)
             self.scorer._rebuild()
@@ -615,28 +689,231 @@ class ShieldedScorer:
             log.error("recovery_failed", error=str(exc))
             return False
 
-    # -- live resharding (multi-device serving, ROADMAP item 9c) -------------
+    # -- live resharding and re-expansion ----------------------------------
+
+    def _heal_enabled(self) -> bool:
+        return bool(self.settings.mesh_heal_enabled)
+
+    def _heal_ready(self) -> "int | None":
+        """The mesh position the classifier declared persistently failed,
+        or None (nothing classified, heal disabled, or not graph-sharded:
+        the replay and rebuild rungs apply as they are)."""
+        if not self._heal_enabled() or self.scorer._graph_size() <= 1:
+            return None
+        return self.health.failed_position()
+
+    def _try_heal(self, pos: int) -> bool:
+        """The mesh_heal rung: a heal that fails (no survivor layout, a
+        placement error) reports False so the ladder escalates to the
+        full rebuild instead of wedging."""
+        try:
+            self.mesh_heal(positions=(int(pos),))
+            return True
+        except (RuntimeError, OSError, ValueError) as exc:
+            if isinstance(exc, _build.KernelError):
+                raise
+            log.error("mesh_heal_failed", error=str(exc))
+            obs_scope.FLIGHT_RECORDER.note_event(
+                "mesh_heal_failed", error=str(exc)[:200])
+            return False
+
+    def _survivors(self, excluded: tuple[int, ...]) -> int:
+        return len(self.pool) - len(excluded)
+
+    def _survivor_mesh(self, shards: int, excluded: tuple[int, ...]):
+        """The survivor mesh of ``shards`` positions from the pool less
+        ``excluded``, checked before anything is journaled or adopted:
+        None for one shard, which serves on the scorer's own device, so
+        that device must be a survivor's (a heal never moves the serving
+        state to another platform). Raises RuntimeError when the
+        survivors cannot carry it, and NotImplementedError (a
+        RuntimeError) when its positions span more than one card
+        (``parallel/mesh.check_one_card``)."""
+        from . import heal as heal_mod
+        from ..parallel.mesh import canonical_device, check_one_card
+        mesh = heal_mod.survivor_mesh(shards, excluded, self.pool)
+        if mesh is None and shards > 1:
+            raise RuntimeError(f"no survivor mesh of {shards} positions in "
+                               f"a pool of {len(self.pool)} less "
+                               f"{len(excluded)} excluded")
+        if mesh is not None:
+            check_one_card(mesh)
+        else:
+            live = [d for i, d in enumerate(self.pool) if i not in excluded]
+            if canonical_device(self.scorer.device) not in live:
+                raise RuntimeError(
+                    f"no survivor position on {self.scorer.device} to "
+                    "serve one shard")
+        return mesh
+
+    def _journal_mesh(self, shards: int, excluded: tuple[int, ...],
+                      d_old: int, **meta) -> int:
+        """Write-ahead a ``mesh_heal`` record (forced to disk) BEFORE the
+        reshard applies; returns its generation."""
+        s = self.scorer
+        seq = int(s._synced_seq)
+        self._heal_gen += 1
+        self.journal.append((), seq, seq, kind="mesh_heal", force_sync=True,
+                            shards=shards, exclude=tuple(excluded),
+                            from_shards=d_old, heal_gen=self._heal_gen,
+                            **meta)
+        return self._heal_gen
 
     def mesh_heal(self, positions: tuple[int, ...] = (),
                   exclude_devices: tuple[int, ...] = ()) -> dict:
-        raise NotImplementedError(f"ShieldedScorer.mesh_heal: {_MESH_ITEM}")
+        """Live D → D' resharding around failed positions: journal the heal
+        FIRST (forced to disk, the order of delta batches and params
+        swaps), then re-place the resident state onto a survivor mesh at
+        the largest viable D' (``heal.plan_reshard``), under
+        ``serve_lock``. ``positions`` are CURRENT mesh positions (the
+        classifier's verdicts, translated to pool indices here since
+        positions shift with every reshard); callers that know the dead
+        pool index pass ``exclude_devices``. Forces the next snapshot.
+        Returns the plan. Raises RuntimeError when no position survives."""
+        from . import heal as heal_mod
+        s = self.scorer
+        t0 = time.perf_counter()
+        with s.serve_lock:
+            d_old = s._graph_size()
+            dead = {int(i) for i in exclude_devices}
+            for pos in positions:
+                if s.mesh is not None and 0 <= int(pos) < s.mesh.size:
+                    dead.add(heal_mod.device_index(s.mesh, int(pos)))
+            excluded = tuple(sorted(set(self._mesh_excluded) | dead))
+            survivors = self._survivors(excluded)
+            if survivors < 1:
+                raise RuntimeError(f"mesh heal: every position of the "
+                                   f"pool of {len(self.pool)} is excluded")
+            d_new = heal_mod.plan_reshard(s.snapshot.padded_nodes, d_old,
+                                          survivors)
+            mesh = self._survivor_mesh(d_new, excluded)
+            heal_gen = self._journal_mesh(d_new, excluded, d_old)
+            old_mesh = s.mesh
+            s.adopt_mesh(mesh)
+            self._mesh_excluded = excluded
+        for pos in positions:
+            if old_mesh is not None and 0 <= int(pos) < old_mesh.size:
+                self.health.exclude(int(pos), heal_mod.device_index(
+                    old_mesh, int(pos)))
+        self.heals += 1
+        self.last_heal_seconds = time.perf_counter() - t0
+        obs_metrics.MESH_HEALS.inc()
+        obs_metrics.MESH_SERVING_SHARDS.set(float(max(d_new, 1)))
+        obs_scope.FLIGHT_RECORDER.note_event(
+            "mesh_heal", from_shards=d_old, to_shards=d_new,
+            excluded=list(excluded), heal_gen=heal_gen)
+        # the on-disk snapshot carries the OLD mesh shape, and the state
+        # was re-derived from the host mirrors: anchor a fresh one
+        self._force_anchor()
+        log.warning("mesh_healed", from_shards=d_old, to_shards=d_new,
+                    excluded=excluded,
+                    seconds=round(self.last_heal_seconds, 4))
+        return {"from_shards": d_old, "shards": d_new,
+                "excluded": excluded, "heal_gen": heal_gen}
+
+    def _maybe_reexpand(self) -> None:
+        """Half-open probe gate: once every excluded index's breaker has
+        cooled down, grow D' back to the home mesh. The probe IS the next
+        guarded tick: a clean pass closes the probing breakers; one more
+        shard-localized failure re-opens and re-heals at once."""
+        if (self._mesh_excluded and self._heal_enabled()
+                and self.health.can_reexpand()):
+            self.reexpand()
 
     def reexpand(self) -> "dict | None":
-        raise NotImplementedError(f"ShieldedScorer.reexpand: {_MESH_ITEM}")
+        """Grow D' → D (the home shard count) when the excluded positions
+        return: in-flight ticks are superseded, journaled exactly like
+        the heal. Forces the next snapshot. Returns the plan, or None when
+        nothing is excluded."""
+        from . import heal as heal_mod
+        s = self.scorer
+        with s.serve_lock:
+            if not self._mesh_excluded:
+                return None
+            d_old = s._graph_size()
+            d_new = self._mesh_home
+            mesh = self._survivor_mesh(d_new, ())
+            heal_gen = self._journal_mesh(d_new, (), d_old, reexpand=True)
+            s.adopt_mesh(mesh)
+            excluded, self._mesh_excluded = self._mesh_excluded, ()
+        dev_to_pos = ({} if mesh is None else
+                      {heal_mod.device_index(mesh, p): p
+                       for p in range(mesh.size)})
+        self.health.note_reexpanded(dev_to_pos)
+        self.reexpansions += 1
+        obs_metrics.MESH_REEXPANSIONS.inc()
+        obs_metrics.MESH_SERVING_SHARDS.set(float(max(d_new, 1)))
+        obs_scope.FLIGHT_RECORDER.note_event(
+            "mesh_reexpand", from_shards=d_old, to_shards=d_new,
+            probed=list(excluded), heal_gen=heal_gen)
+        self._force_anchor()
+        log.warning("mesh_reexpanded", from_shards=d_old, to_shards=d_new,
+                    probed=excluded)
+        return {"from_shards": d_old, "shards": d_new,
+                "probed": excluded, "heal_gen": heal_gen}
 
     def scale_mesh(self, target_shards: int) -> "dict | None":
-        raise NotImplementedError(f"ShieldedScorer.scale_mesh: {_MESH_ITEM}")
+        """Load-driven D → D' reshard through the heal's seam: journaled
+        first (recovery replays it as one more ``mesh_heal`` record), then
+        ``adopt_mesh``, keeping the excluded positions out of the new
+        layout. Moves the home shard count too, so a later heal and
+        re-expansion return to the load-chosen D'. Raises ValueError for
+        a target the node bucket does not divide (or below 1) and
+        RuntimeError for one the non-excluded pool cannot carry. Returns
+        the plan, or None when already at the target."""
+        s = self.scorer
+        d_target = int(target_shards)
+        t0 = time.perf_counter()
+        with s.serve_lock:
+            d_old = s._graph_size()
+            if d_target == d_old:
+                return None
+            excluded = self._mesh_excluded
+            if d_target < 1 or s.snapshot.padded_nodes % d_target:
+                raise ValueError(
+                    f"scale target {d_target} does not divide "
+                    f"padded_nodes={s.snapshot.padded_nodes}")
+            survivors = self._survivors(excluded)
+            if d_target > survivors:
+                raise RuntimeError(
+                    f"scale target {d_target} exceeds {survivors} "
+                    "non-excluded positions")
+            mesh = self._survivor_mesh(d_target, excluded)
+            heal_gen = self._journal_mesh(d_target, excluded, d_old,
+                                          scale=True)
+            s.adopt_mesh(mesh)
+            self._mesh_home = d_target
+        direction = "up" if d_target > d_old else "down"
+        self.scale_events += 1
+        self.last_scale_seconds = time.perf_counter() - t0
+        obs_metrics.MESH_SCALE_EVENTS.inc(direction=direction)
+        obs_metrics.MESH_SERVING_SHARDS.set(float(max(d_target, 1)))
+        obs_scope.FLIGHT_RECORDER.note_event(
+            "mesh_scale", from_shards=d_old, to_shards=d_target,
+            direction=direction, heal_gen=heal_gen)
+        self._force_anchor()
+        log.warning("mesh_scaled", from_shards=d_old, to_shards=d_target,
+                    direction=direction,
+                    seconds=round(self.last_scale_seconds, 4))
+        return {"from_shards": d_old, "shards": d_target,
+                "direction": direction, "heal_gen": heal_gen}
 
     def _attest_and_repair(self) -> tuple[int, ...]:
         """State attestation at a snapshot boundary (rca/heal.attest_fold
-        on the device vs the host-truth oracle): SILENT corruption, the
-        class the finite guard can only catch after it serves a wrong
-        verdict, is detected here and repaired by re-uploading exactly the
-        mismatched blocks from the host mirrors (never a whole-state
-        rebuild). One card is one shard (``g = 1``). Caller holds
-        ``serve_lock``. Returns the mismatched shard positions."""
+        on the device vs the host-truth oracle ``attest_host``): SILENT
+        corruption, the class the finite guard can only catch after it
+        serves a wrong verdict, is detected here, localized to its shard
+        block and repaired by re-uploading exactly the mismatched blocks
+        from the host mirrors (never a whole-state rebuild). On a
+        graph-sharded mesh each position folds its own block on its own
+        device (``g`` blocks); otherwise the table folds as one block.
+        Caller holds ``serve_lock``. Returns the mismatched shard
+        positions; each one also feeds the shard-loss classifier
+        (recurring silent corruption on one position is a failing
+        device)."""
         if not self.settings.mesh_attest:
             return ()
+        from ..parallel.compat import Sharded
         from . import heal as heal_mod
         s = self.scorer
         if len(s._pending_feat):
@@ -645,30 +922,52 @@ class ShieldedScorer:
             # drained boundary instead
             return ()
         pairs = s._attest_arrays()
-        g = 1
+        g = max(s._graph_size(), 1) if s._graph_sharded(
+            s.snapshot.padded_nodes, s.snapshot.padded_incidents) else 1
+
+        def blocks_of(t):
+            """The table's ``g`` blocks as tensors (views), in position
+            order, and every copy of each (dp replicas) to repair."""
+            if isinstance(t, Sharded) and t.placement.axis == "graph":
+                return ([t.blocks[0, k] for k in range(g)],
+                        [list(t.blocks[:, k]) for k in range(g)])
+            copies = list(t.blocks.ravel()) if isinstance(t, Sharded) \
+                else [t]
+            rows = copies[0].shape[0] // g
+            return ([copies[0][k * rows:(k + 1) * rows] for k in range(g)],
+                    [[c[k * rows:(k + 1) * rows] for c in copies]
+                     for k in range(g)])
+
+        tables = [blocks_of(getattr(s, attr)) for attr, _host in pairs]
         with s._on_stream():
-            dev = heal_mod.attest_fold(
-                *[getattr(s, attr) for attr, _host in pairs],
-                shards=g).cpu().numpy()
+            # each block folds on its own device; the [arrays, g] sums
+            # gather on the first position and reach the host in one copy
+            home = tables[0][0][0].device
+            dev = torch.stack([
+                torch.cat([heal_mod.attest_fold(b, shards=1)[0].to(home)
+                           for b in folds])
+                for folds, _copies in tables]).cpu().numpy()
         host = heal_mod.attest_host([h for _a, h in pairs], g)
         mismatch = dev != host                     # [arrays, shards]
         bad = tuple(int(k) for k in np.flatnonzero(mismatch.any(axis=0)))
         if not bad:
             return ()
         with s._on_stream():
-            for ai, (attr, truth) in enumerate(pairs):
-                arr = getattr(s, attr)
-                rows = arr.shape[0] // g
+            for ai, (_attr, truth) in enumerate(pairs):
+                truth = np.asarray(truth)
+                rows = truth.shape[0] // g
                 for k in bad:
                     if not mismatch[ai, k]:
                         continue
-                    block = np.ascontiguousarray(
-                        np.asarray(truth)[k * rows:(k + 1) * rows])
-                    arr[k * rows:(k + 1) * rows] = torch.from_numpy(
-                        block).to(device=arr.device, dtype=arr.dtype)
+                    block = torch.from_numpy(np.ascontiguousarray(
+                        truth[k * rows:(k + 1) * rows]))
+                    for view in tables[ai][1][k]:
+                        view.copy_(block.to(device=view.device,
+                                            dtype=view.dtype))
         self.attest_repairs += 1
         for k in bad:
             obs_metrics.MESH_ATTEST_MISMATCH.inc(shard=str(k))
+            self.health.record_failure(k)
         obs_metrics.MESH_ATTEST_REPAIRS.inc()
         obs_scope.FLIGHT_RECORDER.note_event(
             "attest_repair", shards=list(bad),
@@ -752,13 +1051,22 @@ class ShieldedScorer:
             host = pickle.dumps(s.capture_host_state(),
                                 protocol=pickle.HIGHEST_PROTOCOL)
             store_seq = int(s._synced_seq)
+            mesh_shards = s._graph_size()
         self.last_capture_seconds = time.perf_counter() - t0
         state = {"epoch": self._epoch, "store_seq": store_seq,
                  "klass": type(s).__name__, "layout": layout,
                  "flat": flat, "host": host,
                  # the generation this snapshot serves: compaction drops
                  # only the swap records the snapshot already reflects
-                 "params_gen": int(getattr(s, "params_generation", 0))}
+                 "params_gen": int(getattr(s, "params_generation", 0)),
+                 # the mesh shape the packed tensors were captured AT:
+                 # recovery re-points the mesh before adopting them, and
+                 # compaction drops only the heal records this snapshot
+                 # already reflects (the params_swap discipline)
+                 "mesh_shards": int(mesh_shards),
+                 "mesh_exclude": tuple(self._mesh_excluded),
+                 "mesh_home": int(self._mesh_home),
+                 "heal_gen": int(self._heal_gen)}
         self.snapshots += 1
         self._ticks_since_snapshot = 0
         anchor, self._anchor_due = self._anchor_due, False
@@ -778,7 +1086,8 @@ class ShieldedScorer:
             try:
                 nbytes = self.journal.write_snapshot(state)
                 self.journal.compact(state["store_seq"],
-                                     through_params_gen=state["params_gen"])
+                                     through_params_gen=state["params_gen"],
+                                     through_heal_gen=state["heal_gen"])
                 break
             except (OSError, RuntimeError) as exc:
                 # a failed persist leaves the previous snapshot intact; the
@@ -836,6 +1145,19 @@ class ShieldedScorer:
             return {"mode": "full_rebuild", "replayed": 0, "seconds": dt}
         replayed = 0
         with s.serve_lock:
+            # the packed tensors were captured at the snapshot's mesh
+            # shape: re-point the mesh BEFORE adopting them, so they are
+            # placed at the layout they carry (a crash between a heal and
+            # its covering snapshot restores here, then replays the heal
+            # record below)
+            snap_shards = int(state.get("mesh_shards", s._graph_size()))
+            snap_excl = tuple(state.get("mesh_exclude", ()))
+            self._heal_gen = int(state.get("heal_gen", self._heal_gen))
+            self._mesh_home = int(state.get("mesh_home", self._mesh_home))
+            if (snap_shards != s._graph_size()
+                    or snap_excl != self._mesh_excluded):
+                s.mesh = self._survivor_mesh(snap_shards, snap_excl)
+                self._mesh_excluded = snap_excl
             s.restore_host_state(pickle.loads(state["host"]))
             with s._on_stream():
                 flat = torch.from_numpy(state["flat"]).to(s.device)
@@ -843,6 +1165,25 @@ class ShieldedScorer:
             batches, torn = self.journal.read()
             rb0 = s.rebuilds
             for b in batches:
+                if b.kind == "mesh_heal":
+                    # a heal, re-expansion or scale journaled after the
+                    # snapshot: re-apply it in file order, so the later
+                    # delta batches replay onto the shard count that
+                    # actually served them
+                    gen = int(b.meta.get("heal_gen", 0))
+                    if gen <= self._heal_gen:
+                        continue
+                    excl = tuple(b.meta.get("exclude", ()))
+                    s.adopt_mesh(self._survivor_mesh(int(b.meta["shards"]),
+                                                     excl))
+                    self._mesh_excluded = excl
+                    self._heal_gen = gen
+                    if b.meta.get("scale"):
+                        self._mesh_home = int(b.meta["shards"])
+                    obs_scope.FLIGHT_RECORDER.note_event(
+                        "mesh_heal_replayed", shards=int(b.meta["shards"]),
+                        heal_gen=gen)
+                    continue
                 if b.kind == "params_swap":
                     # a swap journaled after the snapshot: re-install its
                     # exact leaves so post-swap deltas replay onto the
@@ -903,7 +1244,12 @@ class ShieldedScorer:
             "breaker": self.breaker.stats(),
             "breaker_skips": self.breaker_skips,
             "attest_repairs": self.attest_repairs,
-            "serving_shards": 1,
+            "heals": self.heals,
+            "reexpansions": self.reexpansions,
+            "scale_events": self.scale_events,
+            "mesh_excluded": self._mesh_excluded,
+            "serving_shards": self.scorer._graph_size(),
+            "shard_health": self.health.stats(),
         }
 
     def close(self) -> None:

@@ -607,6 +607,37 @@ class StreamingScorer:
                 if isinstance(t, torch.Tensor):
                     setattr(self, name, place(t, placement))
 
+    def adopt_mesh(self, mesh) -> None:
+        """Re-point the resident serving state at a DIFFERENT ``(1 x D')``
+        mesh (or ``None``, one device): live resharding after a classified
+        shard loss (D' < D onto the survivors), re-expansion when the
+        position returns, or a load-driven scale. Caller holds
+        ``serve_lock`` (the shield's ``mesh_heal`` / ``reexpand`` /
+        ``scale_mesh``). Every in-flight tick is superseded (its result
+        is dropped unfetched) and the device state is RE-DERIVED from the
+        host-truth mirrors (``snapshot.features`` holds the resident
+        features' bits, mutations write the host first; the evidence
+        tables re-materialize from the host lists), so a corrupted block
+        of a dead position never survives into the new placement. Host
+        bookkeeping (row maps, free lists, pair maps) is untouched: the
+        healed scorer is the same scorer on another mesh, which is what
+        makes its verdicts bit-identical to a fresh D' build. Pending
+        deltas are already in the host mirrors, so they are dropped rather
+        than copied again. The JAX package's warm-growth re-arm and
+        ``warm_mesh`` have no counterpart: a CUDA kernel builds once."""
+        from ..parallel.mesh import check_one_card
+        self._supersede_inflight()
+        self.mesh = None if mesh is None else check_one_card(mesh)
+        pi = self.snapshot.padded_incidents
+        with self._on_stream():
+            self._features_dev = self._upload(self.snapshot.features)
+            self._upload_tables()
+            self._chain0 = torch.zeros(pi, dtype=torch.float32,
+                                       device=self.device)
+        self._pending_feat.take()
+        self._dirty_rows.clear()
+        self._apply_sharding()
+
     def _set_pod_node(self, pod: int, node: int) -> None:
         """Point `pod` at `node`, keeping the reverse index coherent."""
         old = self._pod_node.get(pod)
@@ -1396,8 +1427,9 @@ class StreamingScorer:
                 self._pair_dev]
 
     def _adopt_resident(self, parts: list) -> None:
-        """Install unpacked device tensors as the resident state (caller is
-        on the scorer's stream) and re-stitch the host feature mirror from
+        """Install unpacked device tensors (whole, as packed) as the
+        resident state, placed per the scorer's mesh (caller is on the
+        scorer's stream), and re-stitch the host feature mirror from
         the restored feature tensor plus the staged rows (a staged row's
         mirror is its staged value; every other row's is the device's)."""
         (self._features_dev, self._ev_idx_dev, self._ev_cnt_dev,
@@ -1409,6 +1441,9 @@ class StreamingScorer:
                                                 features=feats)
         self._chain0 = torch.zeros(self.snapshot.padded_incidents,
                                    dtype=torch.float32, device=self.device)
+        # the whole tensors as packed: placed on the mesh they were
+        # captured at (the shield re-points the mesh first)
+        self._apply_sharding()
 
     def _attest_arrays(self) -> list:
         """(device attribute, host-truth mirror) pairs the attestation

@@ -442,18 +442,30 @@ class MultiTenantScorer(StreamingScorer):
         Quarantined tenants heal first (region re-mirror) and skip the
         drain; a truncated journal quarantines + heals only its tenant; a
         region overflow mid-batch escalates to a repack, which re-captures
-        every re-tensorized cursor (remaining records are reflected)."""
+        every re-tensorized cursor (their remaining records are
+        reflected). A region the repack KEPT keeps its cursor, so the
+        drain starts over after a repack: the JAX package returns there,
+        and a serve then misses the records the kept regions had not
+        drained yet (a caller's own incident among them)."""
         self.syncs += 1
         totals = {"applied": 0, "structural": 0, "feature": 0,
                   "rebuilt": False, "healed": 0}
+        while self._drain(totals):
+            totals["rebuilt"] = True
+        self._note_queue_depths()
+        return totals
+
+    def _drain(self, totals: dict) -> bool:
+        """One pass of :meth:`sync` over the regions, adding to
+        ``totals``. Returns True when a heal or a record escalated to a
+        repack (the pass stops there; the caller starts another)."""
         for reg in self._regions_order:
             if reg.heal_pending:
                 rb0 = self.rebuilds
                 self._heal(reg)
                 totals["healed"] += 1
                 if self.rebuilds != rb0:   # heal escalated to a repack
-                    totals["rebuilt"] = True
-                    return totals
+                    return True
         for reg in self._regions_order:
             if reg.quarantined:
                 continue
@@ -464,8 +476,7 @@ class MultiTenantScorer(StreamingScorer):
                 self._heal(reg)
                 totals["healed"] += 1
                 if self.rebuilds != rb0:
-                    totals["rebuilt"] = True
-                    return totals
+                    return True
                 continue
             if recs:
                 rb0 = self.rebuilds
@@ -475,11 +486,9 @@ class MultiTenantScorer(StreamingScorer):
                 totals["structural"] += res.get("structural", 0)
                 totals["feature"] += res.get("feature", 0)
                 if self.rebuilds != rb0:
-                    totals["rebuilt"] = True
-                    return totals
+                    return True
             reg.synced_seq = max(seq, reg.synced_seq)
-        self._note_queue_depths()
-        return totals
+        return False
 
     def _journal_backlog(self) -> int:
         """The pack's undrained backlog is the SUM over tenant journals

@@ -29,6 +29,8 @@ import threading
 from sqlite3 import Error as sqlite3Error
 from typing import Any
 
+import torch
+
 from ..config import Settings, get_settings
 from ..device import resolve_device
 from ..graph import GraphBuilder
@@ -58,22 +60,27 @@ def _incident_from_row(row: dict) -> Incident:
     ))
 
 
-def check_ported(settings: Settings) -> None:
+def check_ported(settings: Settings, device: Any = None) -> None:
     """Raise ``NotImplementedError`` for a setting whose backing module
     the port does not have yet, naming its ROADMAP item; nothing falls
-    back silently. All of these are off by default. Both backends serve
-    on a mesh (``mesh_dp``, ``serve_graph_shards``); the shield and the
-    elastic controller on a mesh are item 9c."""
-    if int(settings.mesh_dp) <= 1 and int(settings.serve_graph_shards) <= 1:
+    back silently. Both backends serve on a mesh (``mesh_dp``,
+    ``serve_graph_shards``), shielded or not and under the elastic
+    controller; what waits is serving across cards (item 9d): a mesh the
+    default CUDA pool would spread over two cards or more, which
+    ``parallel/mesh.check_one_card`` refuses at build time too. Refused
+    here first, before any device work."""
+    need = max(int(settings.mesh_dp), 1) * max(
+        int(settings.serve_graph_shards), 1)
+    if need <= 1 or (device is not None
+                     and torch.device(device).type != "cuda"):
         return
-    where = (f"mesh_dp={settings.mesh_dp}, serve_graph_shards="
-             f"{settings.serve_graph_shards}")
-    if settings.shield_enabled or settings.elastic_enabled:
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if 2 <= need <= cards:
         raise NotImplementedError(
-            f"{where} with shield_enabled={settings.shield_enabled}, "
-            f"elastic_enabled={settings.elastic_enabled}: the shield and "
-            "the elastic controller on a mesh are not ported yet: "
-            "ROADMAP item 9c")
+            f"mesh_dp={settings.mesh_dp}, serve_graph_shards="
+            f"{settings.serve_graph_shards} over {cards} CUDA devices: "
+            "serving on more than one card is not ported yet: ROADMAP "
+            "item 9d")
 
 
 class IncidentWorker:
@@ -93,7 +100,7 @@ class IncidentWorker:
         self.db = db
         self.builder = builder or GraphBuilder()
         self.settings = settings or get_settings()
-        check_ported(self.settings)
+        check_ported(self.settings, device)
         self.device = resolve_device(device)
         self.dedup = dedup
         self.concurrency = concurrency

@@ -45,7 +45,8 @@ def test_every_port_module_imports_without_jax_orbax_pydantic_yaml():
         "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.sharded_rules',\n"
         "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.partition',\n"
         "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.sharded_gnn',\n"
-        "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.sharded_streaming'} <= set(names)\n"
+        "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.sharded_streaming',\n"
+        "        'kubernetes_aiops_evidence_graph_tpu_torch.parallel.multihost'} <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [k for k in sys.modules if k == {JAX_PKG!r} or k.startswith({JAX_PKG + '.'!r})]\n"
         "assert not bad, bad\n"
@@ -71,6 +72,91 @@ def test_no_import_of_jax_package_or_forbidden_modules(path):
             top = name.split(".")[0]
             assert top not in FORBIDDEN, f"{path}: imports {name}"
             assert top != JAX_PKG, f"{path}: imports the JAX package ({name})"
+
+
+def test_ast_scan_covers_the_multi_process_group():
+    """The scan above walks every port module; the multi-process group
+    (``parallel/multihost.py``, the one module of the port that talks to
+    other processes) is among them and imports none of the forbidden
+    modules."""
+    path = PORT / "parallel" / "multihost.py"
+    assert path in _port_files()
+    test_no_import_of_jax_package_or_forbidden_modules(path)
+
+
+@pytest.mark.cuda
+def test_heal_on_positions_of_one_card(tmp_path):
+    """On the card: a shielded rules scorer on a (1 x 4) mesh of
+    ``[cuda:0] * 4`` loses position 2 persistently and heals onto the
+    survivors at D' = 3 (pool indices 0, 1, 3), serving the verdicts of
+    the same churn scored on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from kubernetes_aiops_evidence_graph_tpu_torch.config import load_settings
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph import GraphBuilder
+    from kubernetes_aiops_evidence_graph_tpu_torch.graph.topology_sync import (
+        sync_topology)
+    from kubernetes_aiops_evidence_graph_tpu_torch.collectors import (
+        collect_all, default_collectors)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca import heal
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.faults import (
+        Fault, FaultInjector)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.shield import (
+        ShieldedScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
+        StreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator import (
+        generate_cluster, inject)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        churn_events, store_step)
+
+    cfg = load_settings(shield_snapshot_every_ticks=3,
+                        shield_retry_backoff_s=0.001,
+                        node_bucket_sizes=(384, 1536),
+                        incident_bucket_sizes=(12, 48))
+    outs = {}
+    for name in ("cpu", "cuda"):
+        cluster = generate_cluster(num_pods=120, seed=13)
+        rng = np.random.default_rng(13)
+        builder = GraphBuilder()
+        sync_topology(cluster, builder.store)
+        keys = sorted(cluster.deployments)
+        incs = [inject(cluster, n, keys[i * 5 % len(keys)], rng)
+                for i, n in enumerate(("crashloop_deploy", "oom", "network"))]
+        for inc in incs:
+            builder.ingest(inc, collect_all(
+                inc, default_collectors(cluster, cfg), parallel=False))
+        pool = [torch.device(name, 0) if name == "cuda"
+                else torch.device("cpu")] * 4
+        scorer = StreamingScorer(builder.store, cfg,
+                                 now_s=cluster.now.timestamp(),
+                                 mesh=heal.survivor_mesh(4, (), pool),
+                                 mesh_from_settings=False)
+        inj = FaultInjector([Fault("shard_loss", at=2, kind="shard_loss",
+                                   repeats=3, shard=2)])
+        shield = ShieldedScorer(scorer, cfg, directory=str(tmp_path / name),
+                                injector=inj, pool=pool)
+        try:
+            shield.recover_or_snapshot()
+            stream = list(churn_events(
+                cluster, 120, seed=99,
+                incident_ids=tuple(f"incident:{i.id}" for i in incs)))
+            for s in range(0, len(stream), 20):
+                for ev in stream[s:s + 20]:
+                    store_step(cluster, builder.store, ev)
+                shield.tick()
+            out = shield.rescore()
+        finally:
+            shield.close()
+        assert shield.heals == 1 and scorer._graph_size() == 3
+        assert scorer.mesh.pool_index.ravel().tolist() == [0, 1, 3]
+        alias = {f"incident:{inc.id}": f"inj-{i}" for i, inc in
+                 enumerate(incs)}
+        outs[name] = {alias.get(iid, iid): (int(out["top_rule_index"][r]),
+                                            np.asarray(out["scores"][r])
+                                            .tobytes())
+                      for r, iid in enumerate(out["incident_ids"])}
+    assert outs["cuda"] == outs["cpu"]
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

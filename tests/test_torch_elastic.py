@@ -1,10 +1,10 @@
 """The port's ``rca/elastic.py`` against the JAX package's: the hysteresis
 gate, the divisor ladder and its single-rung steps, and ``observe()``'s
 decisions, fed the same signals. The JAX ladder spans the eight virtual
-CPU devices of the test session; the port's spans ``serving_devices()``,
-one card, so the comparisons that step set it to eight. On one card the
-ladder is ``(1,)``: ``observe()`` decides and holds, and a step's mesh
-(``prewarm``) raises naming ROADMAP item 9."""
+CPU devices of the test session; the port's spans the shield's pool of
+positions, so the comparisons that step give the fake shield eight. A
+shield whose pool is one position (or that names none) has the ladder
+``(1,)``: ``observe()`` decides and holds."""
 from types import SimpleNamespace
 
 import pytest
@@ -15,7 +15,7 @@ from kubernetes_aiops_evidence_graph_tpu_torch.rca.elastic import (
 from tests import torch_surge_world as W
 
 
-def _fake_shield(shards=2, pn=384, **scorer_over):
+def _fake_shield(shards=2, pn=384, pool=8, **scorer_over):
     """A shield's seam over a fake scorer whose roofline series (a pack
     label no scorer uses) is empty in both packages, whatever other tests
     of the process observed: its drift reads 0."""
@@ -24,7 +24,8 @@ def _fake_shield(shards=2, pn=384, **scorer_over):
         _graph_size=lambda: shards, pipeline_depth=2, _inflight=(1, 2),
         stall_seconds=0.0, _scope_entry="streaming.rules_tick",
         _scope_pack="elastic-test", **scorer_over)
-    return SimpleNamespace(scorer=scorer, _mesh_excluded=())
+    return SimpleNamespace(scorer=scorer, _mesh_excluded=(),
+                           pool=["cpu"] * pool)
 
 
 @pytest.mark.parametrize("pkg", [W.JAX_PKG, W.PORT_PKG])
@@ -46,11 +47,11 @@ def test_hysteresis_gate_dwell_and_flap_immunity(pkg):
     assert seen == [False, False, True, False, False, False, False, True]
 
 
-def test_elastic_ladder_and_single_rung_steps(monkeypatch):
+def test_elastic_ladder_and_single_rung_steps():
     """Viable shard counts are the divisors of padded_nodes that fit the
-    non-excluded devices, one rung a step either way; with eight devices
-    the port's ladder equals the JAX package's on its eight."""
-    monkeypatch.setattr(t_el, "serving_devices", lambda: 8)
+    non-excluded positions, one rung a step either way; with a pool of
+    eight the port's ladder equals the JAX package's on its eight
+    devices."""
     jel = W.mod(W.JAX_PKG, "rca.elastic")
     for mod in (t_el, jel):
         shield = _fake_shield()
@@ -64,13 +65,11 @@ def test_elastic_ladder_and_single_rung_steps(monkeypatch):
         assert ec.ladder() == (1, 2, 3, 4, 6)
 
 
-def test_elastic_observe_scales_after_dwell_and_respects_cooldown(
-        monkeypatch):
+def test_elastic_observe_scales_after_dwell_and_respects_cooldown():
     """With eight devices, observe() holds until the up-gate sustains past
     dwell, then pre-warms and scales exactly once, resets both gates, and
     the cooldown holds the next event off: the same decisions as the JAX
     controller on the same signals."""
-    monkeypatch.setattr(t_el, "serving_devices", lambda: 8)
     runs = {}
     for pkg in (W.JAX_PKG, W.PORT_PKG):
         t = [0.0]
@@ -110,19 +109,30 @@ def test_elastic_disabled_never_scales():
 
 
 def test_on_one_card_the_ladder_is_one_rung_and_observe_holds():
-    """The port serves on one card: the ladder is (1,), so a sustained hot
-    signal decides and holds; a step to a mesh raises naming item 9."""
-    shield = _fake_shield(shards=1, scale_mesh=None)
+    """A pool of one position (one card): the ladder is (1,), so a
+    sustained hot signal decides and holds; the target mesh of one shard
+    is None and a pool of one cannot carry two.
+    A pool of four carries the step, and ``prewarm`` builds its mesh
+    from the pool less the excluded positions."""
+    shield = _fake_shield(shards=1, pool=1, scale_mesh=None)
     shield.scale_mesh = lambda d: pytest.fail("scaled")
     ec = ElasticController(shield, W.settings(elastic_enabled=True,
                                               elastic_dwell_s=0.0))
-    assert t_el.serving_devices() == 1 and ec.ladder() == (1,)
+    assert ec.ladder() == (1,)
     for _ in range(3):
         dec = ec.observe()
         assert dec["action"] == "hold" and dec["occupancy"] == 1.0
     assert ec._step(+1) is None and ec._step(-1) is None
-    with pytest.raises(NotImplementedError, match="item 9"):
+    assert ec.prewarm(1) is None
+    with pytest.raises(RuntimeError, match="cannot carry"):
         ec.prewarm(2)
+    shield = _fake_shield(shards=1, pool=4)
+    shield._mesh_excluded = (1,)
+    ec = ElasticController(shield, W.settings(elastic_enabled=True))
+    assert ec.ladder() == (1, 2, 3) and ec._step(+1) == 2
+    mesh = ec.prewarm(3)
+    assert mesh.shape == {"dp": 1, "graph": 3}
+    assert mesh.pool_index.ravel().tolist() == [0, 2, 3]
 
 
 def test_signals_read_the_pack_roofline_under_its_own_label():
@@ -135,7 +145,8 @@ def test_signals_read_the_pack_roofline_under_its_own_label():
     pack = srv.scorer("t2")
     pack.serve()
     pack.serve()
-    ec = ElasticController(SimpleNamespace(scorer=pack, _mesh_excluded=()),
+    ec = ElasticController(SimpleNamespace(scorer=pack, _mesh_excluded=(),
+                                           pool=[pack.device]),
                            W.settings(elastic_enabled=True))
     sig = ec.signals()
     entry = pack._scope_entry

@@ -1,10 +1,9 @@
-"""The one-card parts of the port's ``rca/heal.py`` against the JAX
-package's: the attestation fold (torch, on the tensors' device) equals the
+"""The port's ``rca/heal.py`` against the JAX package's: the attestation fold (torch, on the tensors' device) equals the
 JAX ``attest_fold`` and the host oracle ``attest_host`` at 1, 2 and 4
 shards on every dtype a resident table carries, NaN payloads included,
 and flags exactly the corrupted block (tests/test_heal.py:183); the
-reshard plan and the shard classifier take the same decisions; the mesh
-itself waits for ROADMAP item 9."""
+survivor mesh over a pool of positions matches the JAX package's over
+its devices."""
 from __future__ import annotations
 
 import numpy as np
@@ -86,7 +85,21 @@ def test_attest_flags_exactly_the_corrupted_block(shards, block):
 
 
 def test_the_mesh_waits_for_multi_device_serving():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_heal.survivor_mesh(3, exclude=(2,))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_heal.device_index(torch.device("cpu"))
+    """The survivor mesh and the position identity: ``survivor_mesh``
+    builds ``(1 x D')`` from a pool of positions less the excluded pool
+    indices, in the JAX package's device order (tests/test_heal.py:162),
+    and ``device_index`` reads a position's pool index, never comparing
+    devices (every position of a CPU pool is the same ``torch.device``)."""
+    pool = [torch.device("cpu")] * 8
+    m = t_heal.survivor_mesh(3, exclude=(2,), pool=pool)
+    want = j_heal.survivor_mesh(3, exclude=(2,))
+    assert m.shape == dict(zip(want.axis_names, want.devices.shape)) == {
+        "dp": 1, "graph": 3}
+    assert m.pool_index.ravel().tolist() == [d.id for d in
+                                             want.devices.flat] == [0, 1, 3]
+    assert [t_heal.device_index(m, p) for p in range(3)] == [0, 1, 3]
+    assert t_heal.survivor_mesh(1, (), pool) is None
+    assert t_heal.survivor_mesh(8, (0,), pool) is None
+    assert j_heal.survivor_mesh(8, exclude=(0,)) is None
+    m2 = t_heal.survivor_mesh(2, (0, 1, 3), pool)
+    assert m2.pool_index.ravel().tolist() == [2, 4]

@@ -214,8 +214,10 @@ def test_a_shard_delta_past_the_ladder_re_mirrors(params, monkeypatch):
 
 def test_dp_only_mesh_warns_and_serves_one_device(params, caplog):
     """A mesh without a real graph axis has no sharded learned mapping:
-    logged, served on one device with D = 1's bits; a live reshard
-    (adopt_mesh) is refused naming its item."""
+    logged, served on one device with D = 1's bits. A live reshard
+    (adopt_mesh) onto a (1 x 2) mesh re-buckets the mirror into two
+    shards and serves a fresh D = 2 build's bits (which are D = 1's); a
+    dp-only mesh adopted is one device again."""
     _, cluster, builder, _ = _scorer(PORT_PKG, params, 1)
     mesh = pmesh.make_mesh(2, 1, ["cpu"] * 2)
     with caplog.at_level(logging.WARNING):
@@ -229,8 +231,23 @@ def test_dp_only_mesh_warns_and_serves_one_device(params, caplog):
         now_s=cluster.now.timestamp(), device="cpu")
     assert np.array_equal(scorer.rescore()["probs"],
                           single.rescore()["probs"])
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    builds = scorer.mirror_builds
+    with scorer.serve_lock:
         scorer.adopt_mesh(pmesh.make_mesh(1, 2, ["cpu"] * 2))
+    assert scorer._graph_size() == 2 and scorer._mirror_sharded
+    assert isinstance(scorer._esrc_dev, Sharded)
+    assert scorer.mirror_builds == builds + 1
+    fresh = tgs.GnnStreamingScorer(
+        builder.store, load_settings(**SMALL), params=params,
+        now_s=cluster.now.timestamp(),
+        mesh=pmesh.make_mesh(1, 2, ["cpu"] * 2))
+    want = single.rescore()["probs"]
+    assert np.array_equal(fresh.rescore()["probs"], want)
+    assert np.array_equal(scorer.rescore()["probs"], want)
+    with scorer.serve_lock:
+        scorer.adopt_mesh(mesh)
+    assert scorer.mesh is None and not scorer._mirror_sharded
+    assert np.array_equal(scorer.rescore()["probs"], want)
 
 
 def test_tiers_on_a_sharded_mirror_serve_the_sharded_tick(params,

@@ -207,13 +207,13 @@ def test_ensure_host_devices_and_serving_mesh():
     with pytest.raises(ValueError):
         pmesh.make_mesh(3, 3, ["cpu"] * 8)
     # positions may repeat one card, but a serving mesh over two cards
-    # waits for item 9c (the scorer refuses it before touching a device)
+    # waits for item 9d (the scorer refuses it before touching a device)
     one = pmesh.make_mesh(1, 2, [torch.device("cuda", 0)] * 2)
     assert pmesh.check_one_card(one) is one
     two = pmesh.make_mesh(1, 2, [torch.device("cuda", i) for i in (0, 1)])
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(NotImplementedError, match="item 9d"):
         pmesh.check_one_card(two)
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(NotImplementedError, match="item 9d"):
         StreamingScorer(None, load_settings(), device="cpu", mesh=two)
 
 
@@ -261,9 +261,9 @@ def test_pack_at_two_shards_bit_parity_with_singles_and_jax():
 
 def test_worker_serves_rules_on_a_mesh_and_refuses_what_waits():
     """The worker builds its mesh from the pool for the rules backend
-    (JAX workflow/worker.py:184) and for the learned scorer (:161), and
-    raises naming the item for the shield and the elastic controller on
-    a mesh (9c)."""
+    (JAX workflow/worker.py:184) and for the learned scorer (:161), with
+    the shield and the elastic controller too; what waits (9d) is a mesh
+    over several cards."""
     from kubernetes_aiops_evidence_graph_tpu_torch.simulator import (
         generate_cluster)
     from kubernetes_aiops_evidence_graph_tpu_torch.storage import Database
@@ -280,8 +280,7 @@ def test_worker_serves_rules_on_a_mesh_and_refuses_what_waits():
         scorer = worker.serving_scorer()
         assert scorer.mesh is not None and scorer.mesh.shape == shape
         assert scorer._sharded(scorer.snapshot.padded_incidents)
-    # the learned scorer serves on the worker's (1 x 2) mesh; the shield
-    # and the elastic controller on a mesh are still refused
+    # the learned scorer serves on the worker's (1 x 2) mesh
     gnn_cfg = load_settings(rca_backend="gnn", serve_graph_shards=2)
     check_ported(gnn_cfg)
     scorer = IncidentWorker(cluster, Database(":memory:"), settings=gnn_cfg,
@@ -292,12 +291,34 @@ def test_worker_serves_rules_on_a_mesh_and_refuses_what_waits():
     assert isinstance(scorer._esrc_dev, Sharded)
     assert len(scorer.rescore()["incident_ids"]) == len(
         scorer.live_incidents()[0])
+    import tempfile
     for over in (dict(shield_enabled=True, mesh_dp=2),
                  dict(elastic_enabled=True, serve_graph_shards=2),
                  dict(rca_backend="gnn", shield_enabled=True,
                       serve_graph_shards=2)):
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            check_ported(load_settings(**over))
+        cfg = load_settings(shield_dir=tempfile.mkdtemp(
+            prefix="kaeg-mesh-shield-"), **over)
+        check_ported(cfg, "cpu")
+        worker = IncidentWorker(cluster, Database(":memory:"), settings=cfg,
+                                device="cpu")
+        scorer = worker.serving_scorer()
+        try:
+            assert scorer.mesh is not None and scorer.mesh.size == 2
+            assert (type(scorer).__name__ == "ShieldedScorer") == bool(
+                cfg.shield_enabled)
+            assert len(scorer.rescore()["incident_ids"]) == len(
+                scorer.live_incidents()[0])
+        finally:
+            worker.close()
+    # the default CUDA pool over two cards would spread the mesh: 9d
+    import kubernetes_aiops_evidence_graph_tpu_torch.workflow.worker as wm
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(wm.torch.cuda, "is_available", lambda: True)
+        mp.setattr(wm.torch.cuda, "device_count", lambda: 2)
+        with pytest.raises(NotImplementedError, match="item 9d"):
+            check_ported(load_settings(serve_graph_shards=2))
+        check_ported(load_settings(serve_graph_shards=4))
+        check_ported(load_settings(serve_graph_shards=2), "cpu")
 
 
 def test_sharded_tick_priced_with_its_sum_and_routing_recorded():

@@ -1,11 +1,12 @@
 """The crash shield's snapshot pack (``rca/shield._snapshot_pack`` and
 ``_snapshot_unpack``) against the JAX package's, its kernel preparation
-and what the shield leaves to multi-device serving.
+and the mesh operations.
 
 The pack equals the JAX package's flat buffer on the dtypes both carry and
 round-trips every resident dtype bit for bit through a persisted snapshot.
 A kernel's build, load or launch error (``kernels._build.KernelError``)
-surfaces from the guarded call at once: it never walks the ladder.
+surfaces from the guarded call at once: it never walks the ladder. The
+mesh operations reshard a shielded scorer over a pool of positions.
 """
 from __future__ import annotations
 
@@ -152,14 +153,40 @@ def test_a_kernel_error_surfaces_and_never_walks_the_ladder(tmp_path,
 
 
 def test_mesh_operations_wait_for_multi_device_serving(tmp_path):
-    from kubernetes_aiops_evidence_graph_tpu_torch.rca import heal
-    run = W.run(tmp_path, events=20)
-    for call in (lambda s: s.mesh_heal(positions=(0,)), lambda s: s.reexpand(),
-                 lambda s: s.scale_mesh(2)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call(run.shield)
-    assert run.shield.stats()["serving_shards"] == 1
-    assert "mesh_heal" not in t_shield.LADDER
-    for call in (lambda: heal.survivor_mesh(2), lambda: heal.device_index(0)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    """The shield's three mesh operations on a pool of two CPU positions:
+    a shielded D = 1 scorer scales to (1 x 2) (journaled, the features
+    placed as two node blocks, verdicts bit-equal to the unscaled run),
+    heals around position 1 back to one device, and re-expands to its
+    home D = 2; each writes its ``mesh_heal`` record before it applies
+    and the ladder carries the ``mesh_heal`` rung."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel.compat import (
+        Sharded)
+    cfg = W.settings()
+    cluster, builder, _ = W._world(W.PORT_PKG, cfg)
+    scorer = W.make_scorer(W.PORT_PKG, "rules", builder.store, cfg,
+                           cluster.now.timestamp(), None)
+    want = W.by_id(scorer.rescore(), W.RESULT_KEYS)
+    shield = t_shield.ShieldedScorer(scorer, cfg, directory=str(tmp_path),
+                                     pool=["cpu"] * 2)
+    try:
+        shield.recover_or_snapshot()
+        assert shield.scale_mesh(1) is None
+        plan = shield.scale_mesh(2)
+        assert plan["shards"] == 2 and plan["direction"] == "up"
+        assert isinstance(scorer._features_dev, Sharded)
+        assert scorer._features_dev.blocks.shape == (1, 2)
+        assert W.by_id(shield.rescore(), W.RESULT_KEYS) == want
+        heal = shield.mesh_heal(positions=(1,))
+        assert heal["shards"] == 1 and heal["excluded"] == (1,)
+        assert scorer.mesh is None and shield.stats()["serving_shards"] == 1
+        assert W.by_id(shield.rescore(), W.RESULT_KEYS) == want
+        back = shield.reexpand()
+        assert back["shards"] == 2 and shield._mesh_excluded == ()
+        assert shield.stats()["serving_shards"] == 2
+        assert W.by_id(shield.rescore(), W.RESULT_KEYS) == want
+    finally:
+        shield.close()
+    assert [plan["heal_gen"], heal["heal_gen"], back["heal_gen"]] == [1, 2, 3]
+    assert t_shield.LADDER.index("mesh_heal") == \
+        t_shield.LADDER.index("journal_replay") + 1 == \
+        t_shield.LADDER.index("full_rebuild") - 1

@@ -3,8 +3,9 @@ runs ``kernels/rules_fold``'s plain version) against the JAX package's on
 the same tenant stores, against the port's single-tenant scorers and
 against the snapshot path: the contracts of ``tests/test_surge.py``
 (batched verdicts bit-identical at every rung of the incident ladder,
-device passes bounded by the incident bucket, the incremental repack, the
-batch telemetry, the newest-tick fetch), then a seeded churn over four
+device passes bounded by the incident bucket, the incremental repack and
+the drain of the regions it kept, the batch telemetry, the newest-tick
+fetch), then a seeded churn over four
 tenants checked after every serve, and ``chip_smoke.py``'s phase 17
 rehearsed at a small size."""
 import math
@@ -123,6 +124,35 @@ def test_region_overflow_repacks_incrementally(monkeypatch):
     W.assert_snapshot_parity(mt, stores, cfg, raw)
     assert W.tenant_verdicts(mt, raw, values=True) == W.tenant_verdicts(
         jmt, values=True)
+
+
+def test_a_repack_mid_sync_drains_the_kept_regions():
+    """An earlier region's overflow repacks in the middle of a sync; a
+    region the repack KEPT still drains its journal in that sync, so the
+    serve holds a later tenant's new incident (its caller's own write),
+    equal to snapshot scoring. The JAX pack returns at the repack and
+    serves without it until the next sync (the port's departure); then
+    the two agree."""
+    twin = _twin([100, 101, 102], 1, {"incident_bucket_sizes": (4, 8)})
+    raws = {}
+    for pkg, (pmt, pworlds, _s, pcfg) in twin.items():
+        pmt.serve()
+        cluster, builder, _ = pworlds["t0"]
+        W.inject_more(pkg, cluster, builder, pcfg, seed=100, count=9)
+        cluster, builder, _ = pworlds["t2"]
+        W.inject_more(pkg, cluster, builder, pcfg, seed=102, count=1,
+                      start=200)
+        raws[pkg] = pmt.serve()
+        assert pmt.rebuilds == 1 and pmt.regions["t2"].pi == 8, pkg
+    mt, _w, stores, cfg = twin[W.PORT_PKG]
+    jmt = twin[W.JAX_PKG][0]
+    W.assert_snapshot_parity(mt, stores, cfg, raws[W.PORT_PKG])
+    new = "t2::incident:" + str(__import__("uuid").UUID(int=102 * 1000
+                                                         + 200))
+    assert new in raws[W.PORT_PKG]["incident_ids"]
+    assert new not in raws[W.JAX_PKG]["incident_ids"]
+    assert W.tenant_verdicts(mt, raws[W.PORT_PKG], values=True) == \
+        W.tenant_verdicts(jmt, values=True)
 
 
 def test_batch_metrics_and_flight_records():

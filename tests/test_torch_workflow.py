@@ -238,23 +238,30 @@ def test_worker_serving_scorer_is_the_ports(backend, cls):
     (dict(shield_enabled=True, mesh_dp=2), "item 9"),
     (dict(mesh_dp=2), "item 9"),
     (dict(serve_graph_shards=2), "item 9"), ("surge", "item 7")])
-def test_unported_settings_raise_and_name_their_item(override, item):
+def test_unported_settings_raise_and_name_their_item(override, item,
+                                                     tmp_path):
     db = t_storage.Database(":memory:")
     _DBS.append(db)
-    if override in (dict(mesh_dp=2), dict(serve_graph_shards=2)):
-        # item 9a landed: the rules backend serves on a mesh of the
-        # pool's positions (tests/test_torch_sharded_streaming.py)
+    if override != "surge":
+        # items 9a and 9c landed: the rules backend serves on a mesh of
+        # the pool's positions (tests/test_torch_sharded_streaming.py),
+        # shielded too (tests/test_torch_mesh_shield.py)
         from kubernetes_aiops_evidence_graph_tpu_torch.parallel import (
             mesh as pmesh)
+        from kubernetes_aiops_evidence_graph_tpu_torch.rca.shield import (
+            ShieldedScorer)
+        settings = T.settings(shield_dir=str(tmp_path), **override)
         pool = dict(pmesh._HOST_POOL)
         pmesh._HOST_POOL.update(devices=2, committed=False)
         try:
             worker = t_workflow.IncidentWorker(
-                _cluster(), db, settings=T.settings(**override),
-                device="cpu")
-            assert worker.serving_scorer().mesh.size == 2
-            t_app.AiopsApp(_cluster(), T.settings(**override), db=db,
-                           device="cpu")
+                _cluster(), db, settings=settings, device="cpu")
+            scorer = worker.serving_scorer()
+            assert scorer.mesh.size == 2
+            assert isinstance(scorer, ShieldedScorer) == bool(
+                settings.shield_enabled)
+            worker.close()
+            t_app.AiopsApp(_cluster(), settings, db=db, device="cpu")
         finally:
             pmesh._HOST_POOL.clear()
             pmesh._HOST_POOL.update(pool)
@@ -285,15 +292,41 @@ def test_unported_settings_raise_and_name_their_item(override, item):
 @pytest.mark.parametrize("env,item", [
     ({"KAEG_NUM_PROCESSES": "2"}, "item 9")])
 def test_main_refuses_what_is_not_ported(env, item, monkeypatch):
+    """What ``main()`` refused as item 9 now serves: with
+    ``KAEG_NUM_PROCESSES`` set it first forms the process group
+    (``parallel.init_distributed``, JAX app.py:441), then builds and
+    starts the app (stubbed here) and stops it on Ctrl-C."""
+    from kubernetes_aiops_evidence_graph_tpu_torch import parallel as t_par
     from kubernetes_aiops_evidence_graph_tpu_torch.config import settings as cs
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    calls = []
+
+    class App:
+        def __init__(self, cluster, settings):
+            calls.append(("app", settings.cluster_backend))
+
+        def start(self):
+            calls.append("start")
+            return 0
+
+        def stop(self):
+            calls.append("stop")
+
+    def interrupted():
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(t_par, "init_distributed",
+                        lambda: calls.append("init") or True)
+    monkeypatch.setattr(t_app, "AiopsApp", App)
+    monkeypatch.setattr(t_app, "threading", SimpleNamespace(
+        Event=lambda: SimpleNamespace(wait=interrupted)))
     cs.get_settings.cache_clear()
     try:
-        with pytest.raises(NotImplementedError, match=item):
-            t_app.main()
+        t_app.main()
     finally:
         cs.get_settings.cache_clear()
+    assert calls == ["init", ("app", "fake"), "start", "stop"]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host "
