@@ -2,11 +2,14 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--package-dir DIR] [--state-dir DIR]
+    python3 chip_smoke.py [--package-dir DIR] --mesh-ticks
 
 (``--package-dir`` drives the port's package of another tree, for example
 an unpacked parent commit, with this script's phases: two trees compared
 on one card, one run after the other. ``--state-dir`` makes those runs
-hash the digested kernels' outputs on the same saved inputs.)
+hash the digested kernels' outputs on the same saved inputs.
+``--mesh-ticks`` runs nothing but the host ms a config-4 mesh tick of
+rules and learned scorers at D 1, 2 and 4, one JSON line.)
 
 Drives ``kubernetes_aiops_evidence_graph_tpu_torch`` on the card, both RCA
 paths: the rules path (``rca_backend="tpu"``, kernel ``rules_fold``) and
@@ -271,7 +274,28 @@ the learned model's training, offline (``rca/train.py``) and online
    B1, B2 and B3 launches held; a two-process gloo group and a one-rank
    NCCL group summing over dp on the card; a ``{"mesh_heal": {...}}``
    line;
-22. prints a ``{"gms_compare": {...}}`` line (the message pass split by
+22. serving across cards (ROADMAP 9d, ``run_cards``): every mesh
+   position on a stream of its own. (a) The race probe: config 4's
+   rules churn (2,000 events in ticks of 100, depth 2) through a D = 1
+   scorer and scorers on (1 x 4) and (2 x 2) meshes of positions on the
+   card, and for the first 300 events the learned composed churn through
+   a D = 1 scorer and two (1 x 2) scorers; each non-lead position's
+   stream in turn sleeps about 1 ms (``torch.cuda._sleep``) before its
+   work in every ``compat.run`` (the per-position function wrapped).
+   Every rules ``rescore()`` is bit-equal to D = 1, every learned one
+   bit-equal to its undelayed twin and within phase 20's tolerance of
+   D = 1, the launches match the passes, and the delay held the host at
+   least once (a slab wait, a stall or a wait on an unfinished tick).
+   (b) The control, in a child process: the same probe with the joins
+   dropped (the caller's stream no longer waits on the positions at a
+   compat call's exit; a slab keeps its first card's event only); it
+   prints whether any verdict or prob diverged, ungated. (c) With two
+   cards or more, the rules churn on (1 x 2) over cuda:0 and cuda:1 and
+   the learned one at D = 2 over them, equal to D = 1; on one card the
+   leg is reported as not run. Then the host ms a mesh tick of phases 19
+   and 20 and the device ms of a (1 x 4) rules tick with its partial
+   folds' overlap; a ``{"cards": {...}}`` line;
+23. prints a ``{"gms_compare": {...}}`` line (the message pass split by
    kernel at config 3, forward and dh, and config 4; the hub probe; the
    learned forward, the train step, the ticks per tier, each split by
    kernel, and learned events/s; ``grad_w`` per launch at the trainer's
@@ -5779,6 +5803,462 @@ def by_incident(out: dict, key: str) -> list:
     return [vals[rows[iid]].tobytes() for iid in sorted(rows)]
 
 
+# -- phase 22: serving across cards (ROADMAP 9d) -----------------------------
+
+CARDS_MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
+"""Phase 22's rules meshes, (dp, graph), every position on the card."""
+CARDS_DELAY_MS = 1.0
+"""The race probe's delay of a position's stream before each of its
+compat calls."""
+CARDS_CONTROL_FLAG = "--cards-control"
+"""Runs phase 22's control alone (a child process of the smoke)."""
+
+
+def sleep_cycles(ms: float) -> int:
+    """``torch.cuda._sleep`` cycles worth about ``ms`` on this card."""
+    import torch
+    n = 2_000_000
+    torch.cuda._sleep(n)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(n)
+    b.record()
+    b.synchronize()
+    return max(int(n * ms / a.elapsed_time(b)), 1)
+
+
+@contextlib.contextmanager
+def delayed_position(target: tuple, cycles: int, hits: list):
+    """Every ``compat.run`` call sleeps position ``target`` (its ``(dp,
+    graph)``) on its own stream for ``cycles`` just before that
+    position's work: the per-position function itself is wrapped."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel import compat
+    real = compat.run
+
+    def run(mesh, fn, *args, where=None):
+        def slow(pos, *blocks):
+            if (pos.dp, pos.graph) == target:
+                torch.cuda._sleep(cycles)
+                hits[0] += 1
+            return fn(pos, *blocks)
+        return real(mesh, slow, *args, where=where)
+
+    compat.run = run
+    try:
+        yield
+    finally:
+        compat.run = real
+
+
+@contextlib.contextmanager
+def dropped_joins():
+    """The control: the caller's stream no longer waits on the positions
+    at the exit of a compat call (the tick's join), and a staged slab
+    keeps only its first card's upload event (the slab's join)."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel import compat
+    join, upload = compat._join, compat.upload
+
+    def first_event_only(mesh, host, copy=False):
+        out, done = upload(mesh, host, copy=copy)
+        return out, done[:1]
+
+    compat._join = lambda caller, streams: None
+    compat.upload = first_event_only
+    try:
+        yield
+    finally:
+        compat._join, compat.upload = join, upload
+
+
+def count_host_waits(scorer, box: dict) -> None:
+    """Count (and time) the scorer's host waits on a tick that had not
+    finished yet: a fetch, a full queue's stall or its drain."""
+    real = scorer._wait
+
+    def wait(handles):
+        if handles.done is None or handles.done.query():
+            return real(handles)
+        t0 = time.perf_counter()
+        real(handles)
+        box["host_waits"] += 1
+        box["host_wait_s"] += time.perf_counter() - t0
+    scorer._wait = wait
+
+
+def partial_overlap(fn, d: int, iters: int = 10) -> dict:
+    """The ``rules_fold_partial`` launches of ``iters`` calls of ``fn``
+    (one mesh tick each, ``d`` launches a tick) from the profiler's
+    kernel records: per tick the sum of their device times, the time
+    their union covers and the span from the first start to the last
+    end, in ms (medians), and the ticks in which two overlapped. A
+    session that lost records is profiled again, ``PROFILE_SESSIONS`` in
+    all; empty when none kept every record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD_KERNELS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ivs = sorted((e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if "rules_fold_partial" in e.name
+                     and e.device_type == torch.autograd.DeviceType.CUDA)
+        if len(ivs) == d * iters:
+            break
+        log(f"partial_overlap: session rejected, {len(ivs)} partial "
+            f"records for {iters} ticks of {d}")
+    else:
+        return {}
+    sums, unions, spans, overlapped = [], [], [], 0
+    for t in range(iters):
+        grp = ivs[t * d:(t + 1) * d]
+        sums.append(sum(b - a for a, b in grp) / 1e3)
+        spans.append((max(b for _, b in grp) - grp[0][0]) / 1e3)
+        cover, end = 0.0, grp[0][0]
+        for a, b in grp:
+            cover += max(0.0, b - max(a, end))
+            end = max(end, b)
+        unions.append(cover / 1e3)
+        overlapped += any(grp[k + 1][0] < grp[k][1] for k in range(d - 1))
+    return {"ticks": iters, "partials_a_tick": d,
+            "partial_sum_ms": statistics.median(sums),
+            "partial_union_ms": statistics.median(unions),
+            "partial_span_ms": statistics.median(spans),
+            "ticks_with_overlap": overlapped}
+
+
+def cards_probe(dev, cycles: int, control: bool, num_pods: int = 10_000,
+                num_incidents: int = 100, events: int = 2000,
+                batch_size: int = 100, rescore_every: int = 5, seed: int = 0,
+                learned_events: int = 300) -> dict:
+    """Phase 22's race probe (``control=False``) or its control
+    (``control=True``, under :func:`dropped_joins`): the config-4 rules
+    churn (``events`` full-mix events in ticks of ``batch_size``,
+    ``tick_async`` at depth 2, a ``rescore()`` every ``rescore_every``
+    ticks and at the end) through a D = 1 scorer and scorers on the
+    ``CARDS_MESHES`` of positions repeating the card, and for the first
+    ``learned_events`` the learned composed churn through a D = 1 scorer
+    and two (1 x 2) scorers, one delayed and one not, with a rescore
+    after every tick. A mesh scorer's calls run under
+    :func:`delayed_position`, the non-lead positions in turn a tick. The
+    probe raises unless every rules rescore is bit-equal to D = 1, every
+    learned one bit-equal to its undelayed twin and within phase 20's
+    tolerance of D = 1, and the launches match the passes; the control
+    counts the rescores that differ instead. With two cards or more the
+    probe also runs the rules churn on (1 x 2) over cuda:0 and cuda:1 and
+    the learned churn at D = 2 over them."""
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel import (
+        compat, make_mesh, serving_mesh)
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel.compat import (
+        Sharded)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
+        GnnStreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
+        StreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        churn_events, store_step)
+    t_phase = time.perf_counter()
+    settings, cluster, builder, _ = streaming_world(num_pods, num_incidents,
+                                                    seed)
+    store = builder.store
+    now_s = cluster.now.timestamp()
+    params = shipped_params(dev)
+    layers = len(params["layers"])
+    cards = ([torch.device("cuda", i) for i in (0, 1)]
+             if torch.cuda.device_count() >= 2 else None)
+    # name -> (kind, mesh shape (dp, graph) or None, scorer, delayed)
+    scorers: dict = {"rules_D1": ("rules", None, StreamingScorer(
+        store, settings, now_s=now_s, device=dev), False)}
+    for name, (dp, graph) in CARDS_MESHES.items():
+        mesh = make_mesh(dp, graph, [dev] * (dp * graph))
+        s = StreamingScorer(store, settings, now_s=now_s, device=dev,
+                            mesh=mesh)
+        feats = s._features_dev
+        if not (isinstance(feats, Sharded) and feats.placement.axis
+                == "graph" and feats.blocks.shape == (dp, graph)):
+            raise AssertionError(f"cards {name}: the features are not "
+                                 f"{dp} x {graph} node blocks")
+        scorers[f"rules_{name}"] = ("rules", (dp, graph), s, True)
+
+    def learned(mesh):
+        return GnnStreamingScorer(store, settings, params=params,
+                                  now_s=now_s, device=dev, mesh=mesh,
+                                  mesh_from_settings=False)
+    scorers["learned_D1"] = ("learned", None, learned(None), False)
+    scorers["learned_1x2"] = ("learned", (1, 2), learned(
+        serving_mesh(2, devices=[dev] * 2, strict=True)), True)
+    scorers["learned_1x2_twin"] = ("learned", (1, 2), learned(
+        serving_mesh(2, devices=[dev] * 2, strict=True)), False)
+    if cards is not None:
+        scorers["rules_two_cards"] = ("rules", (1, 2), StreamingScorer(
+            store, settings, now_s=now_s, device=cards[0],
+            mesh=serving_mesh(2, devices=cards, strict=True)), False)
+        scorers["learned_two_cards"] = ("learned", (1, 2), learned(
+            serving_mesh(2, devices=cards, strict=True)), False)
+    build_s = time.perf_counter() - t_phase
+    targets = {name: [(p.dp, p.graph) for p in compat.positions(s.mesh)[1:]]
+               for name, (_, _, s, delayed) in scorers.items() if delayed}
+    # every scorer's waits: the delayed probes' beside the undelayed
+    # twin's and the D = 1 scorers'
+    waits = {name: {"host_waits": 0, "host_wait_s": 0.0,
+                    "slab_waits0": s._stage_pool.waits}
+             for name, (_, _, s, _) in scorers.items()}
+    for name in waits:
+        count_host_waits(scorers[name][2], waits[name])
+    hits = [0]
+    launches = {k: 0 for k in learned_counts()}
+    diverged: list = []
+    checked = collections.Counter()
+
+    def expected(name, passes):
+        kind, shape, _, _ = scorers[name]
+        if kind == "learned":
+            return learned_tick_launches(1 if shape is None else shape[1],
+                                         layers, passes)
+        want = dict.fromkeys(launches, 0)
+        if shape is None:
+            want["rules_fold"] = passes
+        else:
+            want["rules_fold_partial"] = shape[0] * shape[1] * passes
+            want["rules_tail"] = shape[0] * passes
+        return want
+
+    def call(name, tick, fn):
+        """``fn()`` on scorer ``name``, delayed where it is a probe, its
+        launches held to its passes."""
+        _, _, s, delayed = scorers[name]
+        c0, p0 = learned_counts(), s.dispatches
+        ctx = (delayed_position(targets[name][tick % len(targets[name])],
+                                cycles, hits) if delayed
+               else contextlib.nullcontext())
+        with ctx:
+            out = fn()
+        got = count_delta(c0, learned_counts())
+        want = expected(name, s.dispatches - p0)
+        if got != want:
+            raise AssertionError(f"cards {name}: launches {got}, expected "
+                                 f"{want}")
+        for k, n in got.items():
+            launches[k] += n
+        return out
+
+    def hold(check, mine, ref, what):
+        checked[what.split(":")[0]] += 1
+        if not control:
+            return check(mine, ref, what)
+        try:
+            check(mine, ref, what)
+        except AssertionError as exc:
+            diverged.append(str(exc)[:200])
+
+    def rescore(names, tick):
+        outs = {n: call(n, tick, scorers[n][2].rescore) for n in names}
+        for n in names:
+            kind, shape, _, _ = scorers[n]
+            if shape is None:
+                continue
+            if kind == "rules":
+                hold(bit_equal_verdicts, outs[n], outs["rules_D1"],
+                     f"{n}: tick {tick} vs D = 1")
+            else:
+                hold(close_learned_verdicts, outs[n], outs["learned_D1"],
+                     f"{n}: tick {tick} vs D = 1")
+                if n == "learned_1x2":
+                    hold(bit_equal_verdicts, outs[n],
+                         outs["learned_1x2_twin"],
+                         f"{n}: tick {tick} vs its undelayed twin")
+        return outs
+
+    stream = list(churn_events(cluster, events, seed=seed + 1,
+                               incident_ids=tuple(store.incident_ids())))
+    reset_counts()
+    ctx = dropped_joins() if control else contextlib.nullcontext()
+    ticks = 0
+    with ctx:
+        live = list(scorers)
+        rescore(live, 0)
+        for start in range(0, len(stream), batch_size):
+            for ev in stream[start:start + batch_size]:
+                store_step(cluster, store, ev)
+            ticks += 1
+            if start >= learned_events:
+                for n in [n for n in live if scorers[n][0] == "learned"]:
+                    live.remove(n)
+            for n in live:
+                s = scorers[n][2]
+                call(n, ticks, lambda: (s.sync(), s.tick_async()))
+            learned_left = any(scorers[n][0] == "learned" for n in live)
+            if (ticks % rescore_every == 0 or learned_left
+                    or start + batch_size >= len(stream)):
+                rescore(live, ticks)
+        torch.cuda.synchronize()
+    probe_waits = {n: {"host_waits": w["host_waits"],
+                       "host_wait_s": w["host_wait_s"],
+                       "slab_waits": scorers[n][2]._stage_pool.waits
+                       - w["slab_waits0"],
+                       "stall_s": scorers[n][2].stall_seconds}
+                   for n, w in waits.items()}
+    held = sum(w["host_waits"] + w["slab_waits"] + (w["stall_s"] > 0)
+               for n, w in probe_waits.items() if scorers[n][3])
+    res = {"control": control, "events": len(stream), "ticks": ticks,
+           "learned_events": learned_events, "delay_cycles": cycles,
+           "delayed_calls": hits[0], "rescores_checked": dict(checked),
+           "waits": probe_waits, "host_waits_caused": held,
+           "passes": {n: s.dispatches for n, (_, _, s, _) in scorers.items()},
+           "launches": launches, "build_s": build_s,
+           "two_card": ("run: cuda:0 and cuda:1" if cards is not None
+                        else f"not run: {torch.cuda.device_count()} device")}
+    if control:
+        res["diverged_rescores"] = len(diverged)
+        res["diverged_first"] = diverged[:3]
+    else:
+        if not hits[0]:
+            raise AssertionError("cards: the delay never ran")
+        if not held:
+            raise AssertionError(f"cards: the delay held the host at no "
+                                 f"wait: {probe_waits}")
+        s4 = scorers["rules_1x4"][2]
+        with kept_counts():
+            res["tick_1x4"] = {
+                "device_ms": device_ms(s4.dispatch, iters=20),
+                **partial_overlap(s4.dispatch, 4)}
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def spawn_cards_control(package_dir: str):
+    """Start phase 22's control in a child process (its dropped joins may
+    corrupt what it reads, so it runs apart from the gated phases)."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--package-dir",
+         package_dir, CARDS_CONTROL_FLAG],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def join_cards_control(proc, timeout_s: float = 300.0) -> dict:
+    """The control's record, or what went wrong (reported, not gated)."""
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        return {"outcome": f"timed out after {timeout_s} s",
+                "tail": out[-2000:]}
+    if proc.returncode != 0:
+        return {"outcome": f"exit {proc.returncode}", "tail": out[-2000:]}
+    rec = json.loads(out.strip().splitlines()[-1])
+    rec["outcome"] = ("a verdict or prob diverged"
+                      if rec["diverged_rescores"] else "nothing diverged")
+    return rec
+
+
+MESH_TICKS_FLAG = "--mesh-ticks"
+"""Times host ms a mesh tick alone (``mesh_tick_ms``), for holding one
+tree against another (``--package-dir``) on one card."""
+
+
+def mesh_tick_ms(dev, num_pods: int = 10_000, num_incidents: int = 100,
+                 events: int = 2000, batch_size: int = 100,
+                 rescore_every: int = 5, seed: int = 0) -> dict:
+    """Host ms a config-4 churn tick (sync + ``tick_async``, ``events``
+    full-mix events in ticks of ``batch_size``) of rules and learned
+    scorers at D 1, 2 and 4 (positions on the card) on one store, each
+    tick's scorers in alternating order, p50; every ``rescore_every``
+    ticks the meshes are held to D = 1 (rules bit for bit, learned as
+    phase 20 holds it). Only the scorers' public entries are used, so
+    any tree of the port can be timed."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel import (
+        serving_mesh)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
+        GnnStreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
+        StreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        churn_events, store_step)
+    settings, cluster, builder, _ = streaming_world(num_pods, num_incidents,
+                                                    seed)
+    store = builder.store
+    now_s = cluster.now.timestamp()
+    params = shipped_params(dev)
+
+    def mesh(d):
+        return (None if d == 1 else
+                serving_mesh(d, devices=[dev] * d, strict=True))
+    scorers = {}
+    for d in (1, 2, 4):
+        scorers[f"rules_D{d}"] = StreamingScorer(
+            store, settings, now_s=now_s, device=dev, mesh=mesh(d))
+        scorers[f"learned_D{d}"] = GnnStreamingScorer(
+            store, settings, params=params, now_s=now_s, device=dev,
+            mesh=mesh(d), mesh_from_settings=False)
+    for s in scorers.values():
+        s.rescore()
+    stream = list(churn_events(cluster, events, seed=seed + 1,
+                               incident_ids=tuple(store.incident_ids())))
+    host_s = {k: [] for k in scorers}
+    ticks = 0
+    for start in range(0, len(stream), batch_size):
+        for ev in stream[start:start + batch_size]:
+            store_step(cluster, store, ev)
+        ticks += 1
+        for k in (list(scorers) if ticks % 2 else list(scorers)[::-1]):
+            s = scorers[k]
+            t0 = time.perf_counter()
+            s.sync()
+            s.tick_async()
+            host_s[k].append(time.perf_counter() - t0)
+        if ticks % rescore_every == 0:
+            ref = {"rules": scorers["rules_D1"].rescore(),
+                   "learned": scorers["learned_D1"].rescore()}
+            for k, s in scorers.items():
+                if not k.endswith("_D1"):
+                    check = (bit_equal_verdicts if k.startswith("rules")
+                             else close_learned_verdicts)
+                    check(s.rescore(), ref[k.split("_")[0]], k)
+    return {"ticks": ticks, "host_ms_per_tick_p50": {
+        k: statistics.median(v) * 1e3 for k, v in host_s.items()}}
+
+
+def run_cards(dev, package_dir: str, mesh_run: dict, mesh_learned: dict
+              ) -> dict:
+    """Phase 22 (ROADMAP 9d): the race probe (:func:`cards_probe`)
+    with a delay of about ``CARDS_DELAY_MS`` on each non-lead position's
+    stream in turn, its control in a child process with the joins
+    dropped, the two-card leg where there are two cards; the host ms a
+    mesh tick of phases 19 and 20 (now on per-position streams) and the
+    device ms of a (1 x 4) rules tick with its partial folds' overlap."""
+    t0 = time.perf_counter()
+    cycles = sleep_cycles(CARDS_DELAY_MS)
+    proc = spawn_cards_control(package_dir)
+    try:
+        probe = cards_probe(dev, cycles, control=False)
+    finally:
+        control = join_cards_control(proc)
+    host = {"rules_ms": {k: v * 1e3 for k, v in
+                         mesh_run["config4"]["host_s_per_tick_p50"].items()},
+            "learned_ms": {k: mesh_learned["host_s_per_tick_p50"][k] * 1e3
+                           for k in ("D1", "D2", "D4")}}
+    res = {"probe": probe, "control": control, "host_ms_per_tick_p50": host,
+           "two_card": probe["two_card"], "phase_s": time.perf_counter() - t0}
+    log(f"cards: probe {probe['rescores_checked']} rescores held "
+        f"({probe['delayed_calls']} delayed calls of {cycles} cycles), "
+        f"host waits caused {probe['host_waits_caused']} "
+        f"{probe['waits']}; control: {control.get('outcome')} "
+        f"({control.get('diverged_rescores')} diverged); two cards: "
+        f"{probe['two_card']}; (1 x 4) tick {probe['tick_1x4']}; host ms a "
+        f"tick {host}; phase {res['phase_s']:.1f} s")
+    return res
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -5792,6 +6272,12 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--state-dir", help="keep the inputs that the digests "
                     "hash here (inside the checkout): the first run saves "
                     "them, later runs load them")
+    ap.add_argument(CARDS_CONTROL_FLAG, dest="cards_control",
+                    action="store_true", help="run phase 22's control alone "
+                    "and print its record (the smoke starts it itself)")
+    ap.add_argument(MESH_TICKS_FLAG, dest="mesh_ticks", action="store_true",
+                    help="only time host ms a mesh tick of the package "
+                    "(rules and learned at D 1, 2 and 4) and print it")
     opts = ap.parse_args(argv)
     global STATE_DIR
     STATE_DIR = opts.state_dir
@@ -5820,6 +6306,16 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if opts.cards_control:
+        print(json.dumps(cards_probe(dev, sleep_cycles(CARDS_DELAY_MS),
+                                     control=True), default=str))
+        return 0
+    if opts.mesh_ticks:
+        from kubernetes_aiops_evidence_graph_tpu_torch.kernels import _build
+        _build.build_all()
+        print(json.dumps({"package": os.path.abspath(opts.package_dir),
+                          **mesh_tick_ms(dev)}))
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -6054,6 +6550,15 @@ def main(argv: list[str]) -> int:
     learned_paths["mesh_heal"] = heal_run["launches"]
     rules_learned["mesh_heal"] = heal_run["launches"]["rules_fold"]
     split_paths["mesh_heal"] = heal_run["launches"]
+
+    # -- 22. serving across cards: the race probe on (1 x 4) and (2 x 2)
+    # rules meshes and the learned (1 x 2), a delay on each non-lead
+    # position's stream in turn; its control with the joins dropped; the
+    # two-card leg where the machine has two cards -----------------------
+    cards = run_cards(dev, opts.package_dir, mesh_run, mesh_learned)
+    learned_paths["cards"] = cards["probe"]["launches"]
+    rules_learned["cards"] = cards["probe"]["launches"]["rules_fold"]
+    split_paths["cards"] = cards["probe"]["launches"]
 
     kernels = [{
         "name": "rules_fold", "route": "cuda",
@@ -6437,6 +6942,7 @@ def main(argv: list[str]) -> int:
         "card": smi, "serving": mesh_learned, "train": mesh_train,
         "learner": mesh_learner}}, default=str))
     print(json.dumps({"mesh_heal": {"card": smi, **heal_run}}, default=str))
+    print(json.dumps({"cards": {"card": smi, **cards}}, default=str))
     print(json.dumps({"cli": {"card": smi, **cli_run}}))
     print(json.dumps({"blast": {"card": smi, **blast}}))
     print(json.dumps({"live": {"card": smi, **live}}))

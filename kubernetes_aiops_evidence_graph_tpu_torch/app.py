@@ -9,9 +9,7 @@ serves it.
 
 The port's copy of the JAX package's app: the same routes and lifecycle,
 with the scorers on an explicit ``device`` (``None`` is the CUDA device
-and raises without one; the tests pass ``"cpu"``). Settings whose backing
-module is not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item (``workflow.worker.check_ported``).
+and raises without one; the tests pass ``"cpu"``).
 """
 from __future__ import annotations
 
@@ -34,7 +32,6 @@ from .observability import ALERTS_DEDUPLICATED, INCIDENTS_CREATED, configure, ge
 from .observability import metrics as obs_metrics
 from .storage import Database, DuplicateIncidentError
 from .workflow import IncidentWorker, WorkflowEngine
-from .workflow.worker import check_ported
 
 log = get_logger("app")
 
@@ -63,7 +60,6 @@ class AiopsApp:
         device: Any = None,
     ) -> None:
         self.settings = settings or get_settings()
-        check_ported(self.settings, device)
         self.device = resolve_device(device)
         configure(self.settings.log_level)
         self.cluster = cluster

@@ -167,8 +167,7 @@ class Settings:
     # --- serving meshes (parallel/): the rules scorer serves on a
     # graph-sharded and/or data-parallel mesh, the learned scorer on the
     # graph axis, with or without the shield and the elastic controller;
-    # the positions may repeat one card but not span several (serving
-    # across cards is ROADMAP item 9d) ---
+    # the positions may repeat one card or span several ---
     serve_graph_shards: int = 1
     mesh_dp: int = 1
 

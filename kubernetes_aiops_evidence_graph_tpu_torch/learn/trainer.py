@@ -171,23 +171,24 @@ def finetune(serving_params, episodes: list, sim_episodes: list,
 
 
 def _data_mesh(shards: int, device: torch.device):
-    """The ``(1 x shards)`` data mesh of the sharded fine-tune, on the
-    serving params' platform: the CPU's host positions (grown as serving
-    grows them, ``parallel/mesh.ensure_host_devices``), or positions that
-    repeat the params' card (a mesh over several cards is ROADMAP item
-    9d, as for serving). None when the pool cannot carry it."""
-    from ..parallel.mesh import (check_one_card, ensure_host_devices,
-                                 host_devices, make_mesh)
-    device = torch.device(device)
-    if device.type == "cpu":
-        if not ensure_host_devices(shards):
-            return None
-        devices = host_devices()
-    else:
-        devices = [device] * shards
-    if len(devices) < shards:
+    """The ``(1 x shards)`` data mesh of the sharded fine-tune, cut from
+    the pool of the serving params' platform: the CPU's host positions
+    (grown as serving grows them, ``parallel/mesh.ensure_host_devices``),
+    the params' card repeated where the CUDA pool has one card, or the
+    cards, the params' first, where it has several. None when the pool
+    cannot carry it."""
+    from ..parallel.mesh import (canonical_device, device_pool,
+                                 ensure_host_devices, make_mesh)
+    device = canonical_device(device)
+    if device.type == "cpu" and not ensure_host_devices(shards):
         return None
-    return check_one_card(make_mesh(1, shards, devices[:shards]))
+    pool = device_pool(device)
+    if device.type == "cuda":
+        pool = ([device] * shards if len(pool) == 1 else
+                [device] + [d for d in pool if d != device])
+    if len(pool) < shards:
+        return None
+    return make_mesh(1, shards, pool[:shards])
 
 
 def _finetune_sharded(serving_params, schedule: list, lr: float,

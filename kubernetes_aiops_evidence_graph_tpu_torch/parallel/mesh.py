@@ -9,10 +9,11 @@ The framework's two parallel axes (SURVEY.md §2.4):
   split into contiguous node blocks, and the evidence fold of each block
   is summed over the axis.
 
-A :class:`Mesh` is a grid of positions, each a ``torch.device``. A device
-may stand at several positions: on one card (or on the CPU) a mesh of D
-positions exercises the layout, the routing and the split kernels of a
-D-way mesh, though not the copies between cards. So a ``torch.device``
+A :class:`Mesh` is a grid of positions, each a ``torch.device``. The
+positions may span several cards, and a device may stand at several
+positions: on one card (or on the CPU) a mesh of D positions exercises
+the layout, the routing, the split kernels and the per-position streams
+of a D-way mesh, though not the copies between cards. So a ``torch.device``
 cannot name a position: each position carries its index into the POOL
 the mesh was built from (``pool_index``), the identity a heal's exclusion
 bookkeeping keys on; a mesh that spans the processes of a
@@ -122,6 +123,9 @@ class Mesh:
                            ).reshape(devices.shape)
         self.ranks = (None if ranks is None
                       else np.asarray(ranks, np.int64).reshape(devices.shape))
+        # the positions' streams, made at the first compat call
+        # (``parallel/compat._streams``)
+        self._streams = None
 
     @property
     def size(self) -> int:
@@ -148,22 +152,6 @@ class MeshUnavailable(RuntimeError):
     instead of a misshaped or missing mesh."""
 
 
-def check_one_card(mesh: Mesh) -> Mesh:
-    """Refuse a serving mesh whose positions span more than one CUDA
-    device: the resident scorer stages each tick's delta in a reused
-    pinned slab and orders its copies, scatters and folds on the first
-    card's scorer stream alone, so positions on further cards would read
-    the slab unordered. Positions that repeat one card (or the CPU) are
-    served. Multi-card serving is ROADMAP item 9d."""
-    cards = {d for d in mesh.devices.ravel() if d.type == "cuda"}
-    if len(cards) > 1:
-        raise NotImplementedError(
-            f"a serving mesh over {len(cards)} CUDA devices "
-            f"({sorted(str(d) for d in cards)}): serving on more than one "
-            "card is not ported yet: ROADMAP item 9d")
-    return mesh
-
-
 def settings_mesh(settings, device: "str | torch.device | None" = None,
                   dp: "int | None" = None) -> "Mesh | None":
     """The serving mesh the settings ask for, from the default pool of
@@ -188,10 +176,8 @@ def settings_mesh(settings, device: "str | torch.device | None" = None,
                     len(devices))
         return None
     if graph > 1:
-        mesh = make_mesh(dp, graph, devices[:need])
-    else:
-        mesh = dp_mesh(dp, devices)
-    return check_one_card(mesh)
+        return make_mesh(dp, graph, devices[:need])
+    return dp_mesh(dp, devices)
 
 
 def serving_mesh(graph: int, devices=None, strict: bool = False,
@@ -202,8 +188,8 @@ def serving_mesh(graph: int, devices=None, strict: bool = False,
     ``device``'s platform. None when the pool cannot carry the axis —
     callers fall back to single-device serving (logged by the scorer,
     never silent). ``strict=True`` raises :class:`MeshUnavailable` (with
-    the requested vs available counts) instead of returning None. A mesh
-    over more than one card raises (:func:`check_one_card`)."""
+    the requested vs available counts) instead of returning None. The
+    positions may repeat one card or span several."""
     if graph <= 1:
         return None
     if devices is None:
@@ -222,8 +208,7 @@ def serving_mesh(graph: int, devices=None, strict: bool = False,
                 f"serve_graph_shards={graph} exceeds the {len(devices)} "
                 "available devices")
         return None
-    return check_one_card(Mesh(_grid(list(devices)[:graph], (1, graph)),
-                               ("dp", "graph")))
+    return Mesh(_grid(list(devices)[:graph], (1, graph)), ("dp", "graph"))
 
 
 def make_mesh(dp: int | None = None, graph: int | None = None,

@@ -19,7 +19,9 @@ The distributed design of the JAX package's ``parallel/sharded_gnn.py``:
   too); the loss is a masked mean summed over ``dp`` in position order;
 * autograd differentiates through the per-position work and the ``.to()``
   copies between positions; the parameters are one replicated tree, so
-  each leaf's gradient is the sum of every position's contribution.
+  each leaf's gradient is the sum of every position's contribution;
+* every position's work runs on its own stream (``compat.run``), and
+  each backward op on its forward op's stream.
 
 Both halo strategies take both relation mappings (``rca/gnn.py``): pass
 ``rel_offsets`` (the PartitionedGraph's shared per-shard slice table) to
@@ -69,6 +71,15 @@ def _in_block(idx, lo: int, nps: int):
     return inside, torch.clamp(idx - lo, 0, nps - 1)
 
 
+def _field(grid: np.ndarray, k: int) -> np.ndarray:
+    """The ``k``-th entry of each tuple of a :func:`compat.run` grid."""
+    out = np.empty(grid.shape, dtype=object)
+    for idx, v in np.ndenumerate(grid):
+        if v is not None:
+            out[idx] = v[k]
+    return out
+
+
 def _ring_messages(mesh: Mesh, h, w_rel, esrc, erel, emask, edst, nps: int,
                    rel_offsets=None) -> np.ndarray:
     """The ring halo exchange for one layer. Step ``r`` holds, at graph
@@ -76,26 +87,24 @@ def _ring_messages(mesh: Mesh, h, w_rel, esrc, erel, emask, edst, nps: int,
     source falls in that block consume it (mask ``emask * in_block``),
     then every block moves one hop. ``h`` and the edge operands are
     ``(dp, graph)`` grids of position tensors; returns the grid of
-    ``[nps, H]`` aggregates, each the sum of its D steps in step order."""
+    ``[nps, H]`` aggregates, each the sum of its D steps in step order,
+    every position's on its own stream."""
     g_size = mesh.shape["graph"]
-    pos = compat.positions(mesh)
     agg = np.empty(mesh.grid.shape, dtype=object)
     blocks = h
     for r in range(g_size):
-        for p in pos:
-            i, g = p.dp, p.graph
-            lo = ((g - r) % g_size) * nps
-            inside, local = _in_block(esrc[i, g], lo, nps)
-            m = emask[i, g] * inside
-            w = w_rel[i, g]
+        def step(p, blk, w, es, er, em, ed, acc, r=r):
+            inside, local = _in_block(es, ((p.graph - r) % g_size) * nps, nps)
+            m = em * inside
             if rel_offsets is not None:
                 part = gms.gather_matmul_segment(
-                    blocks[i, g], w, local.to(torch.int32), edst[i, g], m,
-                    rel_offsets, nps)
+                    blk, w, local.to(torch.int32), ed, m, rel_offsets, nps)
             else:
-                part = _reference_agg(blocks[i, g], w, local, erel[i, g], m,
-                                      edst[i, g], nps)
-            agg[i, g] = part if r == 0 else agg[i, g] + part
+                part = _reference_agg(blk, w, local, er, m, ed, nps)
+            return part if acc is None else acc + part
+
+        agg = compat.run(mesh, step, blocks, w_rel, esrc, erel, emask, edst,
+                         agg)
         blocks = compat.ring_shift(blocks, mesh)
     return agg
 
@@ -105,16 +114,16 @@ def _ring_readout(mesh: Mesh, h, inc_nodes, nps: int) -> np.ndarray:
     all-gather): D steps, each taking the rows of the block in flight;
     complete at every position after the rotation."""
     g_size = mesh.shape["graph"]
-    pos = compat.positions(mesh)
     emb = np.empty(mesh.grid.shape, dtype=object)
     blocks = h
     for r in range(g_size):
-        for p in pos:
-            i, g = p.dp, p.graph
-            lo = ((g - r) % g_size) * nps
-            inside, local = _in_block(inc_nodes[i, g], lo, nps)
-            part = blocks[i, g][local.long()] * inside[:, None]
-            emb[i, g] = part if r == 0 else emb[i, g] + part
+        def step(p, blk, inc, acc, r=r):
+            inside, local = _in_block(inc, ((p.graph - r) % g_size) * nps,
+                                      nps)
+            part = blk[local.long()] * inside[:, None]
+            return part if acc is None else acc + part
+
+        emb = compat.run(mesh, step, blocks, inc_nodes, emb)
         blocks = compat.ring_shift(blocks, mesh)
     return emb
 
@@ -124,79 +133,76 @@ def _sharded_loss(mesh: Mesh, halo: str = "allgather", rel_offsets=None):
     :func:`device_put_partitioned` operands. ``rel_offsets`` (the
     PartitionedGraph's shared slice table) selects the relation-bucketed
     pass for both halo strategies. Every graph position computes the same
-    readout; the loss reads graph position 0 of each dp row."""
+    readout; the loss reads graph position 0 of each dp row. Each
+    position's work runs on its own stream (``compat.run``)."""
     if halo not in ("allgather", "ring"):
         raise ValueError(f"halo must be allgather|ring, got {halo!r}")
     if rel_offsets is not None:
         rel_offsets = tuple(int(o) for o in rel_offsets)
-    pos = compat.positions(mesh)
-    shape = mesh.grid.shape
 
     def loss(params, *arrays):
-        # each position's blocks, the leading shard axis of size 1 stripped
-        blk = [np.empty(shape, dtype=object) for _ in arrays]
-        prm = np.empty(shape, dtype=object)
-        for p in pos:
-            for k, a in enumerate(arrays):
-                blk[k][p.dp, p.graph] = a.block(p)[0]
-            prm[p.dp, p.graph] = _on(params, p.device)
+        with compat.session(mesh):
+            return _loss(params, *arrays)
+
+    def _loss(params, *arrays):
+        def setup(p, *blocks):
+            # each position's blocks, the leading shard axis of size 1
+            # stripped; its replica of the params; its degrees and embedding
+            blk = [b[0] for b in blocks]
+            prm = _on(params, p.device)
+            feats, kind, nmask, _es, edst, _er, emask = blk[:7]
+            nps = int(feats.shape[0])
+            return (*blk, prm, gnn.inv_degree(edst, emask, nps),
+                    gnn.embed(prm, feats, kind, nmask))
+
+        st = compat.run(mesh, setup, *arrays)
         (feats, kind, nmask, esrc, edst, erel, emask, inc_nodes, inc_mask,
-         labels) = blk
+         labels, prm, inv_deg, h) = (_field(st, k) for k in range(13))
         nps = int(feats[0, 0].shape[0])
-        h = np.empty(shape, dtype=object)
-        inv_deg = np.empty(shape, dtype=object)
-        for p in pos:
-            i, g = p.dp, p.graph
-            inv_deg[i, g] = gnn.inv_degree(edst[i, g], emask[i, g], nps)
-            h[i, g] = gnn.embed(prm[i, g], feats[i, g], kind[i, g],
-                                nmask[i, g])
         for li in range(len(params["layers"])):
-            w_rel = np.empty(shape, dtype=object)
-            for p in pos:
-                w_rel[p.dp, p.graph] = prm[p.dp, p.graph]["layers"][li]["w_rel"]
+            w_rel = compat.run(
+                mesh, lambda p, pr: pr["layers"][li]["w_rel"], prm)
             if halo == "ring":
                 agg = _ring_messages(mesh, h, w_rel, esrc, erel, emask, edst,
                                      nps, rel_offsets)
             else:
                 full = compat.all_gather(h, mesh)
-                agg = np.empty(shape, dtype=object)
-                for p in pos:
-                    i, g = p.dp, p.graph
+
+                def gather(p, f, w, es, er, em, ed):
                     if rel_offsets is not None:
-                        agg[i, g] = gms.gather_matmul_segment(
-                            full[i, g], w_rel[i, g], esrc[i, g], edst[i, g],
-                            emask[i, g], rel_offsets, nps)
-                    else:
-                        agg[i, g] = _reference_agg(
-                            full[i, g], w_rel[i, g], esrc[i, g], erel[i, g],
-                            emask[i, g], edst[i, g], nps)
-            for p in pos:
-                i, g = p.dp, p.graph
-                h[i, g] = gnn.layer_update(
-                    h[i, g], prm[i, g]["layers"][li],
-                    agg[i, g] * inv_deg[i, g][:, None])
+                        return gms.gather_matmul_segment(
+                            f, w, es, ed, em, rel_offsets, nps)
+                    return _reference_agg(f, w, es, er, em, ed, nps)
+
+                agg = compat.run(mesh, gather, full, w_rel, esrc, erel,
+                                 emask, edst)
+            h = compat.run(mesh, lambda p, hh, pr, a, inv: gnn.layer_update(
+                hh, pr["layers"][li], a * inv[:, None]), h, prm, agg,
+                inv_deg)
         if halo == "ring":
             emb = _ring_readout(mesh, h, inc_nodes, nps)
         else:
             full = compat.all_gather(h, mesh)
-            emb = np.empty(shape, dtype=object)
-            for p in pos:
-                emb[p.dp, p.graph] = full[p.dp, p.graph][
-                    inc_nodes[p.dp, p.graph].long()]
+            emb = compat.run(mesh, lambda p, f, inc: f[inc.long()], full,
+                             inc_nodes)
+
         # incidents are dp-sharded; the graph positions of a row all hold
-        # the same readout: each dp row's graph position 0 contributes,
-        # summed over dp in position order on the first position's device
-        first = mesh.grid[0, 0]
-        loss_sum = count = None
-        for i in range(shape[0]):
-            pr = prm[i, 0]
-            logits = emb[i, 0] @ pr["head_w"] + pr["head_b"]
+        # the same readout: each dp row's graph position 0 contributes its
+        # (masked nll sum, count), summed over dp in position order on the
+        # first position's device
+        def term(p, e, pr, lab, im):
+            logits = e @ pr["head_w"] + pr["head_b"]
             logp = torch.log_softmax(logits, dim=-1)
-            nll = -logp.gather(1, labels[i, 0].long()[:, None])[:, 0]
-            s = (nll * inc_mask[i, 0]).sum().to(first)
-            c = inc_mask[i, 0].sum().to(first)
-            loss_sum = s if loss_sum is None else loss_sum + s
-            count = c if count is None else count + c
+            nll = -logp.gather(1, lab.long()[:, None])[:, 0]
+            return torch.stack([(nll * im).sum(), im.sum()])[None]
+
+        terms = compat.run(mesh, term, emb, prm, labels, inc_mask,
+                           where=lambda p: p.graph == 0)
+        rows = compat.whole(compat.Sharded(dp_sharded(mesh), terms))
+        loss_sum, count = rows[0, 0], rows[0, 1]
+        for i in range(1, rows.shape[0]):
+            loss_sum = loss_sum + rows[i, 0]
+            count = count + rows[i, 1]
         return loss_sum / torch.clamp(count, min=1.0)
 
     return loss

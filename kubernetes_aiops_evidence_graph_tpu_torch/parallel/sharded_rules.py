@@ -80,9 +80,10 @@ def make_sharded_score(mesh: Mesh, rows_per_shard: int, pair_width: int):
                           zero, pair_width)
 
     def score(features, ev_idx, ev_cnt, ev_pair_slot):
-        outs = compat.run(mesh, local_score, features, ev_idx, ev_cnt,
-                          ev_pair_slot, where=lambda p: p.graph == 0)
-        return compat.concat_dp(outs, mesh)
+        with compat.session(mesh):
+            outs = compat.run(mesh, local_score, features, ev_idx, ev_cnt,
+                              ev_pair_slot, where=lambda p: p.graph == 0)
+            return compat.concat_dp(outs, mesh)
 
     return score
 
@@ -127,16 +128,17 @@ def make_graph_sharded_score(mesh: Mesh, rows_per_shard: int,
                 nodes_per_shard=nodes_per_shard, pair_width=pair_width)
             return torch.cat([c, pc], dim=1)
 
-        sums = compat.psum(compat.run(mesh, fold, features, ev_idx, ev_cnt,
-                                      ev_pair_slot), mesh)
-
         def tail(pos, total):
             chain = torch.zeros(rows_per_shard, dtype=torch.float32,
                                 device=pos.device)
             return rules_tail(total[:, :DIM], total[:, DIM:], chain)
 
-        outs = compat.run(mesh, tail, sums, where=lambda p: p.graph == 0)
-        return compat.concat_dp(outs, mesh)
+        with compat.session(mesh):
+            sums = compat.psum(compat.run(mesh, fold, features, ev_idx,
+                                          ev_cnt, ev_pair_slot), mesh)
+            outs = compat.run(mesh, tail, sums,
+                              where=lambda p: p.graph == 0)
+            return compat.concat_dp(outs, mesh)
 
     return score
 

@@ -151,6 +151,12 @@ def sharded_rules_tick(mesh: Mesh, nodes_per_shard: int, rows_per_shard: int,
 
     def tick(features, slabs, ev_idx, ev_cnt, ev_pair, chain, f_live,
              r_spans):
+        with compat.session(mesh):
+            return _tick(features, slabs, ev_idx, ev_cnt, ev_pair, chain,
+                         f_live, r_spans)
+
+    def _tick(features, slabs, ev_idx, ev_cnt, ev_pair, chain, f_live,
+              r_spans):
         def owner_fold(pos, feats, ev_i, ev_c, ev_p):
             ints, rows = _delta_views(slabs[pos.device], pos.graph, g_size,
                                       li, pk)
@@ -197,9 +203,10 @@ def dp_rules_tick(mesh: Mesh, rows_per_shard: int, pair_width: int, pk: int,
                 return None
             return rules_fold(feats, ev_i, ev_c, ev_p, ch, pair_width)
 
-        outs = compat.run(mesh, local, features, ev_idx, ev_cnt, ev_pair,
-                          chain)
-        return compat.concat_dp(outs, mesh)
+        with compat.session(mesh):
+            outs = compat.run(mesh, local, features, ev_idx, ev_cnt,
+                              ev_pair, chain)
+            return compat.concat_dp(outs, mesh)
 
     return tick
 
@@ -236,7 +243,7 @@ def sharded_gnn_tick(mesh: Mesh, nodes_per_shard: int, pe_shard: int, pi: int,
     from ..kernels import gms
     from ..rca import gnn
     from ..rca.gnn_streaming import copy_mirror_delta
-    from .sharded_gnn import _on, _ring_readout
+    from .sharded_gnn import _field, _on, _ring_readout
 
     del slices_sorted, use_pallas
     if rel_offsets is None:
@@ -245,22 +252,28 @@ def sharded_gnn_tick(mesh: Mesh, nodes_per_shard: int, pe_shard: int, pi: int,
     nps = int(nodes_per_shard)
     offs = tuple(int(o) for o in rel_offsets)
     g_size = mesh.shape["graph"]
-    row = Mesh(mesh.grid[:1].copy(), ("dp", "graph"))
+    # dp row 0 runs the forward; its positions keep the mesh's pool
+    # indices, so they run on the same streams as the mesh's
+    row = Mesh(mesh.grid[:1].copy(), ("dp", "graph"),
+               pool_index=mesh.pool_index.reshape(mesh.grid.shape)[:1],
+               ranks=(None if mesh.ranks is None else
+                      mesh.ranks.reshape(mesh.grid.shape)[:1]))
     o_i = 3 * pk + 5 * ek
 
     def tick(params, features, kind, nmask, esrc, edst, erel, emask, ints,
              f_live, e_live):
+        with compat.session(mesh):
+            return _tick(params, features, kind, nmask, esrc, edst, erel,
+                         emask, ints, f_live, e_live)
+
+    def _tick(params, features, kind, nmask, esrc, edst, erel, emask, ints,
+              f_live, e_live):
         compat.run(mesh, lambda pos, *mirror: copy_mirror_delta(
             ints[pos.device][pos.graph], pk, ek, f_live[pos.graph],
             e_live[pos.graph], *mirror), kind, nmask, esrc, edst, erel, emask)
 
-        pos = compat.positions(row)
-        shape = row.grid.shape
-        h, inc_nodes = (np.empty(shape, dtype=object) for _ in range(2))
-        state = {}
-        for p in pos:
+        def setup(p, feats, kd, nm, es, ed, em):
             g = p.graph
-            es, ed, em = esrc.block(p), edst.block(p), emask.block(p)
             # each ring step's block mask and local rows: the slots'
             # sources are fixed through the tick, so every layer reuses them
             steps = [_in_block(es, ((g - r) % g_size) * nps, nps)
@@ -269,43 +282,52 @@ def sharded_gnn_tick(mesh: Mesh, nodes_per_shard: int, pe_shard: int, pi: int,
                     if ed.device.type == "cuda" else None)
             iota = torch.arange(pe_shard, dtype=torch.int32, device=p.device)
             prm = _on(params, p.device)
-            state[g] = (gnn.inv_degree(ed, em, nps), steps, plan, iota, prm)
-            h[0, g] = gnn.embed(prm, features.block(p), kind.block(p),
-                                nmask.block(p))
-            inc_nodes[0, g] = ints[p.device][g][o_i:o_i + pi]
+            return ((gnn.inv_degree(ed, em, nps), steps, plan, iota, prm),
+                    gnn.embed(prm, feats, kd, nm),
+                    ints[p.device][g][o_i:o_i + pi])
+
+        st = compat.run(row, setup, features, kind, nmask, esrc, edst, emask)
+        state, h, inc_nodes = (_field(st, k) for k in range(3))
         for li in range(len(params["layers"])):
-            rows = _assemble_ring(row, pos, h, state)
-            for p in pos:
-                inv_deg, _, plan, iota, prm = state[p.graph]
-                h[0, p.graph] = gnn._message_pass_bucketed(
-                    h[0, p.graph], prm["layers"][li], iota, edst.block(p),
-                    emask.block(p), offs, inv_deg, compute_dtype, plan,
-                    table=rows[p.graph])
-        emb = _ring_readout(row, h, inc_nodes, nps)[0, 0]
-        prm0 = state[0][4]
-        inc_mask = ints[pos[0].device][0][o_i + pi:o_i + 2 * pi]
-        logits = emb @ prm0["head_w"] + prm0["head_b"]
-        # mask dead incident rows so a stale row can never surface a score
-        probs = torch.softmax(logits, dim=-1) * inc_mask.to(
-            torch.float32)[:, None]
-        return logits, probs
+            rows = _assemble_ring(row, h, state)
+            h = compat.run(row, lambda p, hh, sp, tbl, ed, em:
+                           gnn._message_pass_bucketed(
+                               hh, sp[4]["layers"][li], sp[3], ed, em, offs,
+                               sp[0], compute_dtype, sp[2], table=tbl),
+                           h, state, rows, edst, emask)
+        emb = _ring_readout(row, h, inc_nodes, nps)
+
+        def head(p, e, sp):
+            inc_mask = ints[p.device][0][o_i + pi:o_i + 2 * pi]
+            logits = e @ sp[4]["head_w"] + sp[4]["head_b"]
+            # mask dead incident rows so a stale row can never surface a
+            # score
+            probs = torch.softmax(logits, dim=-1) * inc_mask.to(
+                torch.float32)[:, None]
+            return logits, probs
+
+        return compat.run(row, head, emb, state,
+                          where=lambda p: p.graph == 0)[0, 0]
 
     return tick
 
 
-def _assemble_ring(row: Mesh, pos: list, h: np.ndarray, state: dict) -> dict:
+def _assemble_ring(row: Mesh, h: np.ndarray, state: np.ndarray
+                   ) -> np.ndarray:
     """Each position's ``[Pe_shard, H]`` source rows, assembled over one
     rotation of the embedding blocks: at step r a position holds block
     ``(g - r) mod D`` and adds the rows of its slots whose source lives
     there (padded slots, src 0 and mask 0, take block 0's row and the
     kernel's mask zeroes them)."""
-    rows: dict = {}
+    rows = np.empty(row.grid.shape, dtype=object)
     blocks = h
     for r in range(row.shape["graph"]):
-        for p in pos:
-            inside, local = state[p.graph][1][r]
-            part = blocks[0, p.graph][local.long()] * inside[:, None]
-            rows[p.graph] = part if r == 0 else rows[p.graph] + part
+        def step(p, blk, sp, acc, r=r):
+            inside, local = sp[1][r]
+            part = blk[local.long()] * inside[:, None]
+            return part if acc is None else acc + part
+
+        rows = compat.run(row, step, blocks, state, rows)
         blocks = compat.ring_shift(blocks, row)
     return rows
 

@@ -157,14 +157,19 @@ class ElasticController:
         scale event, from the shield's pool less its excluded positions,
         and check it can carry the target. The JAX package compiles the
         tick variants here; a CUDA kernel builds once, so nothing else is
-        warmed. Returns the mesh (None for one shard)."""
+        warmed but the positions' streams (made once per pool position,
+        so the scale's own mesh finds them). Returns the mesh (None for
+        one shard)."""
         from . import heal as heal_mod
+        from ..parallel.compat import prepare_streams
         excluded = getattr(self.shield, "_mesh_excluded", ())
         mesh = heal_mod.survivor_mesh(int(target_shards), excluded,
                                       self.shield.pool)
         if mesh is None and int(target_shards) > 1:
             raise RuntimeError(f"prewarm: the pool cannot carry "
                                f"{target_shards} shards")
+        if mesh is not None:
+            prepare_streams(mesh)
         return mesh
 
     def _cooled(self, now: float) -> bool:

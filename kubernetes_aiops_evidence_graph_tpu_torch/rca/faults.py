@@ -283,6 +283,7 @@ class FaultInjector:
         every position (one device, or a mesh the bucket does not divide)
         the same rows are poisoned in every replica. ``shard`` wraps over
         the mesh's graph size. Returns the position corrupted."""
+        from ..parallel import compat
         from ..parallel.compat import Sharded
         feats = getattr(scorer, "_features_dev", None)
         if feats is None:
@@ -291,14 +292,17 @@ class FaultInjector:
             if hasattr(scorer, "_graph_size") else 1
         shard = int(shard) % g
         with _on_scorer_stream(scorer):
-            if isinstance(feats, Sharded) and feats.placement.axis == "graph":
-                feats.blocks[0, shard].fill_(float("nan"))
-                return shard
-            tables = (feats.blocks.ravel() if isinstance(feats, Sharded)
-                      else (feats,))
-            for t in tables:
-                rows = t.shape[0] // g
-                t[shard * rows:(shard + 1) * rows] = float("nan")
+            if isinstance(feats, Sharded):
+                # each block is poisoned at its position, on its stream
+                if feats.placement.axis == "graph":
+                    compat.run(feats.mesh, lambda p, b: b.fill_(float("nan")),
+                               feats, where=lambda p: (p.dp, p.graph)
+                               == (0, shard))
+                    return shard
+                compat.run(feats.mesh, lambda p, b: _poison_rows(b, shard, g),
+                           feats)
+            else:
+                _poison_rows(feats, shard, g)
         return shard
 
     @staticmethod
@@ -308,16 +312,23 @@ class FaultInjector:
         folds) is replaced by NaNs on the scorer's device (every block of
         it on a mesh), so any path that keeps serving from this state is
         caught by the finite guards."""
+        from ..parallel import compat
         from ..parallel.compat import Sharded
         feats = getattr(scorer, "_features_dev", None)
         if feats is None:
             return
         with _on_scorer_stream(scorer):
             if isinstance(feats, Sharded):
-                for t in feats.blocks.ravel():
-                    t.fill_(float("nan"))
+                compat.run(feats.mesh, lambda p, b: b.fill_(float("nan")),
+                           feats)
             else:
                 scorer._features_dev = torch.full_like(feats, float("nan"))
+
+
+def _poison_rows(t, shard: int, g: int) -> None:
+    """NaN into row block ``shard`` of ``g`` of a whole table."""
+    rows = t.shape[0] // g
+    t[shard * rows:(shard + 1) * rows] = float("nan")
 
 
 def _on_scorer_stream(scorer: Any):

@@ -767,7 +767,8 @@ class GnnStreamingScorer(StreamingScorer):
         On a sharded mirror the base tick (the sharded rules tick, which
         updates the feature node blocks in place) runs first, then the
         per-shard GNN delta is packed, uploaded once per device, and
-        ``sharded_gnn_tick`` runs on the same stream."""
+        ``sharded_gnn_tick`` runs each position on its own stream, joined
+        into the scorer's before the tick's ``done`` event."""
         aux_rows = self._pending_feat.keys()
         self._drain_edges()
         if self._mirror_sharded:
@@ -813,9 +814,12 @@ class GnnStreamingScorer(StreamingScorer):
             aux_rows)
         tick = self._sharded_tick_fn(pk, ek)
         self._scope_gnn(span, pk, ek)
+        from ..parallel import compat
         with self._on_stream():
-            ints_dev = {d: self._upload(ints)
-                        for d in dict.fromkeys(self.mesh.devices.ravel())}
+            # one copy per card, on the stream of the card's first position
+            ints_dev, _ = compat.upload(
+                self.mesh, torch.from_numpy(np.ascontiguousarray(ints)),
+                copy=True)
             logits, probs = tick(
                 self._params, self._features_dev, self._kind_dev,
                 self._nmask_dev, self._esrc_dev, self._edst_dev,

@@ -283,14 +283,13 @@ class ShieldedScorer:
     @property
     def pool(self) -> list:
         """The positions survivor meshes are cut from: the pool given to
-        the constructor, else the default pool of the scorer's platform.
-        On CUDA that default is the scorer's own card: serving on more
-        than one card is ROADMAP item 9d."""
+        the constructor, else the default pool of the scorer's platform
+        (every card on CUDA, as JAX's ``jax.devices()``; the host
+        positions on the CPU)."""
         if self._pool is None:
             from ..parallel.mesh import canonical_device, device_pool
             dev = canonical_device(self.scorer.device)
-            self._pool = ([dev] if dev.type == "cuda" else
-                          [canonical_device(d) for d in device_pool(dev)])
+            self._pool = [canonical_device(d) for d in device_pool(dev)]
         return self._pool
 
     # -- delegation --------------------------------------------------------
@@ -726,19 +725,15 @@ class ShieldedScorer:
         None for one shard, which serves on the scorer's own device, so
         that device must be a survivor's (a heal never moves the serving
         state to another platform). Raises RuntimeError when the
-        survivors cannot carry it, and NotImplementedError (a
-        RuntimeError) when its positions span more than one card
-        (``parallel/mesh.check_one_card``)."""
+        survivors cannot carry it."""
         from . import heal as heal_mod
-        from ..parallel.mesh import canonical_device, check_one_card
+        from ..parallel.mesh import canonical_device
         mesh = heal_mod.survivor_mesh(shards, excluded, self.pool)
         if mesh is None and shards > 1:
             raise RuntimeError(f"no survivor mesh of {shards} positions in "
                                f"a pool of {len(self.pool)} less "
                                f"{len(excluded)} excluded")
-        if mesh is not None:
-            check_one_card(mesh)
-        else:
+        if mesh is None:
             live = [d for i, d in enumerate(self.pool) if i not in excluded]
             if canonical_device(self.scorer.device) not in live:
                 raise RuntimeError(
@@ -913,7 +908,9 @@ class ShieldedScorer:
         device)."""
         if not self.settings.mesh_attest:
             return ()
+        from ..parallel import compat
         from ..parallel.compat import Sharded
+        from ..parallel.mesh import graph_sharded
         from . import heal as heal_mod
         s = self.scorer
         if len(s._pending_feat):
@@ -925,28 +922,31 @@ class ShieldedScorer:
         g = max(s._graph_size(), 1) if s._graph_sharded(
             s.snapshot.padded_nodes, s.snapshot.padded_incidents) else 1
 
-        def blocks_of(t):
-            """The table's ``g`` blocks as tensors (views), in position
-            order, and every copy of each (dp replicas) to repair."""
-            if isinstance(t, Sharded) and t.placement.axis == "graph":
-                return ([t.blocks[0, k] for k in range(g)],
-                        [list(t.blocks[:, k]) for k in range(g)])
-            copies = list(t.blocks.ravel()) if isinstance(t, Sharded) \
-                else [t]
-            rows = copies[0].shape[0] // g
-            return ([copies[0][k * rows:(k + 1) * rows] for k in range(g)],
-                    [[c[k * rows:(k + 1) * rows] for c in copies]
-                     for k in range(g)])
+        tables = [getattr(s, attr) for attr, _host in pairs]
 
-        tables = [blocks_of(getattr(s, attr)) for attr, _host in pairs]
+        def fold(t):
+            """The table's ``g`` block sums in position order, on the
+            first position's device: a graph-sharded table folds each
+            block at its own position (on its stream) and gathers them
+            in order; any other folds the ``g`` row blocks of its first
+            copy where it lies."""
+            if isinstance(t, Sharded) and t.placement.axis == "graph":
+                sums = compat.run(
+                    t.mesh, lambda p, b: heal_mod.attest_fold(
+                        b, shards=1)[0], t, where=lambda p: p.dp == 0)
+                return compat.whole(Sharded(graph_sharded(t.mesh), sums))
+            first = t.blocks.ravel()[0] if isinstance(t, Sharded) else t
+            rows = first.shape[0] // g
+            return torch.cat([heal_mod.attest_fold(
+                first[k * rows:(k + 1) * rows], shards=1)[0]
+                for k in range(g)])
+
         with s._on_stream():
-            # each block folds on its own device; the [arrays, g] sums
-            # gather on the first position and reach the host in one copy
-            home = tables[0][0][0].device
-            dev = torch.stack([
-                torch.cat([heal_mod.attest_fold(b, shards=1)[0].to(home)
-                           for b in folds])
-                for folds, _copies in tables]).cpu().numpy()
+            # the [arrays, g] sums gather on the first position and reach
+            # the host in one copy
+            folds = [fold(t) for t in tables]
+            home = folds[0].device
+            dev = torch.stack([f.to(home) for f in folds]).cpu().numpy()
         host = heal_mod.attest_host([h for _a, h in pairs], g)
         mismatch = dev != host                     # [arrays, shards]
         bad = tuple(int(k) for k in np.flatnonzero(mismatch.any(axis=0)))
@@ -956,14 +956,30 @@ class ShieldedScorer:
             for ai, (_attr, truth) in enumerate(pairs):
                 truth = np.asarray(truth)
                 rows = truth.shape[0] // g
+                t = tables[ai]
                 for k in bad:
                     if not mismatch[ai, k]:
                         continue
                     block = torch.from_numpy(np.ascontiguousarray(
                         truth[k * rows:(k + 1) * rows]))
-                    for view in tables[ai][1][k]:
+                    if not isinstance(t, Sharded):
+                        view = t[k * rows:(k + 1) * rows]
                         view.copy_(block.to(device=view.device,
                                             dtype=view.dtype))
+                        continue
+                    # every copy of the block (dp replicas), each
+                    # rewritten at its position, on its stream
+                    whole_blocks = t.placement.axis == "graph"
+
+                    def put(p, b, block=block, k=k):
+                        view = b if whole_blocks else \
+                            b[k * rows:(k + 1) * rows]
+                        view.copy_(block.to(device=view.device,
+                                            dtype=view.dtype))
+
+                    compat.run(t.mesh, put, t, where=(
+                        lambda p, k=k: p.graph == k) if whole_blocks
+                        else None)
         self.attest_repairs += 1
         for k in bad:
             obs_metrics.MESH_ATTEST_MISMATCH.inc(shard=str(k))
@@ -1045,8 +1061,8 @@ class ShieldedScorer:
             # into the recovery anchor
             self._attest_and_repair()
             arrays = s._resident_arrays()
-            layout = _snapshot_layout(arrays)
             with s._on_stream():
+                layout = _snapshot_layout(arrays)
                 flat = _snapshot_pack(*arrays).cpu().numpy()
             host = pickle.dumps(s.capture_host_state(),
                                 protocol=pickle.HIGHEST_PROTOCOL)

@@ -235,22 +235,27 @@ class FeatureStage:
 class _Slab:
     host: torch.Tensor      # int32, pinned when the scorer runs on CUDA
     view: np.ndarray        # numpy view of ``host`` for the host writes
-    done: "torch.cuda.Event | None" = None   # the last upload that read it
+    # the last uploads that read it: one event per card (one on a single
+    # device, none on the CPU)
+    done: tuple = ()
 
 
 class _SlabPool:
     """Rotating preallocated int32 staging slabs, keyed by length.
 
     A slab's upload is asynchronous (pinned memory, ``non_blocking``), so
-    a slab must not be rewritten until the copy that read it has run:
-    each upload records an event on the slab, and reusing the slab waits
-    for it (normally long past). Rotating ``copies`` slabs per length
-    keeps that wait off the steady-state path."""
+    a slab must not be rewritten until every copy that read it has run:
+    each upload records its events on the slab (one per card of a mesh),
+    and reusing the slab waits for all of them (normally long past).
+    Rotating ``copies`` slabs per length keeps that wait off the
+    steady-state path; ``waits`` counts the reuses that found a copy
+    still pending."""
 
     def __init__(self, copies: int, pin: bool) -> None:
         self.copies = max(int(copies), 2)
         self.pin = pin
         self._pools: dict[int, tuple[list[_Slab], int]] = {}
+        self.waits = 0
 
     def acquire(self, n: int) -> _Slab:
         slabs, nxt = self._pools.get(n, ([], 0))
@@ -262,8 +267,11 @@ class _SlabPool:
             return slab
         self._pools[n] = (slabs, (nxt + 1) % self.copies)
         slab = slabs[nxt]
-        if slab.done is not None:
-            slab.done.synchronize()
+        if slab.done:
+            if not all(ev.query() for ev in slab.done):
+                self.waits += 1
+            for ev in slab.done:
+                ev.synchronize()
         return slab
 
 
@@ -294,14 +302,15 @@ class StreamingScorer:
         # resolved the settings' mesh itself, as the worker does, passes
         # False), the scorer builds its own (1 x D) serving mesh from the
         # default pool of its device's platform (a short pool is logged).
-        # Its positions may repeat one card but not span several.
+        # Its positions may repeat one card or span several; each runs on
+        # a stream of its own (parallel/compat.py).
         if mesh is not None and device is None:
             device = mesh.grid[0, 0]
         self.device = resolve_device(device)
-        from ..parallel.mesh import check_one_card, settings_mesh
+        from ..parallel.mesh import settings_mesh
         if mesh is None and mesh_from_settings:
             mesh = settings_mesh(self.settings, self.device, dp=1)
-        self.mesh = None if mesh is None else check_one_card(mesh)
+        self.mesh = mesh
         # the scorer's own CUDA stream: uploads, in-place deltas, kernel
         # launches and fetches all run on it, in order
         self._stream = (torch.cuda.Stream(self.device)
@@ -624,10 +633,13 @@ class StreamingScorer:
         makes its verdicts bit-identical to a fresh D' build. Pending
         deltas are already in the host mirrors, so they are dropped rather
         than copied again. The JAX package's warm-growth re-arm and
-        ``warm_mesh`` have no counterpart: a CUDA kernel builds once."""
-        from ..parallel.mesh import check_one_card
+        ``warm_mesh`` have no counterpart: a CUDA kernel builds once. The
+        old blocks are read by nothing here; their memory goes back to
+        their positions' streams, whose later work follows the old
+        mesh's last tick (every compat call joins into the scorer's
+        stream)."""
         self._supersede_inflight()
-        self.mesh = None if mesh is None else check_one_card(mesh)
+        self.mesh = mesh
         pi = self.snapshot.padded_incidents
         with self._on_stream():
             self._features_dev = self._upload(self.snapshot.features)
@@ -1257,15 +1269,18 @@ class StreamingScorer:
         dim = self.snapshot.features.shape[1]
         with self._on_stream():
             if on_mesh:
-                # one upload of the slab per device of the mesh
-                slabs = {d: slab.host.to(d, non_blocking=True)
-                         for d in dict.fromkeys(self.mesh.devices.ravel())}
+                # one upload of the slab per card, on the stream of the
+                # card's first position; the slab is free again once
+                # every card's upload has run
+                from ..parallel import compat
+                slabs, slab.done = compat.upload(self.mesh, slab.host)
                 self._staged_gnn_dev = None
             else:
                 slab_dev = slab.host.to(self.device, non_blocking=True)
                 ints, rows, self._staged_gnn_dev = _delta_pack(
                     slab_dev, li, pk, dim, gi)
-            slab.done = self._record()
+                ev = self._record()
+                slab.done = () if ev is None else (ev,)
             if span is not None:
                 span.mark("staging")
                 # roofline drift: price THIS tick at its padded shapes,

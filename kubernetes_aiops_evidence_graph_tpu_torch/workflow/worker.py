@@ -19,8 +19,7 @@ pass ``"cpu"``), wrapped in the crash shield (``rca/shield.py``) when
 ``serve_graph_shards`` above 1 the rules scorer serves on a mesh built
 from the device's pool (``_serving_mesh``). It starts no warm thread:
 a hand kernel compiles once, so the JAX package's warm paths have no
-counterpart. Settings whose backing module is not ported yet raise
-``NotImplementedError`` naming their ROADMAP item (``check_ported``).
+counterpart. A serving, heal or learn mesh may span several cards.
 """
 from __future__ import annotations
 
@@ -28,8 +27,6 @@ import asyncio
 import threading
 from sqlite3 import Error as sqlite3Error
 from typing import Any
-
-import torch
 
 from ..config import Settings, get_settings
 from ..device import resolve_device
@@ -60,29 +57,6 @@ def _incident_from_row(row: dict) -> Incident:
     ))
 
 
-def check_ported(settings: Settings, device: Any = None) -> None:
-    """Raise ``NotImplementedError`` for a setting whose backing module
-    the port does not have yet, naming its ROADMAP item; nothing falls
-    back silently. Both backends serve on a mesh (``mesh_dp``,
-    ``serve_graph_shards``), shielded or not and under the elastic
-    controller; what waits is serving across cards (item 9d): a mesh the
-    default CUDA pool would spread over two cards or more, which
-    ``parallel/mesh.check_one_card`` refuses at build time too. Refused
-    here first, before any device work."""
-    need = max(int(settings.mesh_dp), 1) * max(
-        int(settings.serve_graph_shards), 1)
-    if need <= 1 or (device is not None
-                     and torch.device(device).type != "cuda"):
-        return
-    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if 2 <= need <= cards:
-        raise NotImplementedError(
-            f"mesh_dp={settings.mesh_dp}, serve_graph_shards="
-            f"{settings.serve_graph_shards} over {cards} CUDA devices: "
-            "serving on more than one card is not ported yet: ROADMAP "
-            "item 9d")
-
-
 class IncidentWorker:
     def __init__(
         self,
@@ -100,7 +74,6 @@ class IncidentWorker:
         self.db = db
         self.builder = builder or GraphBuilder()
         self.settings = settings or get_settings()
-        check_ported(self.settings, device)
         self.device = resolve_device(device)
         self.dedup = dedup
         self.concurrency = concurrency

@@ -190,22 +190,27 @@ def test_snapshot_records_the_mesh_and_packs_blocks_in_order(tmp_path):
 
 def test_a_mesh_over_two_cards_is_refused_before_the_journal(tmp_path,
                                                             monkeypatch):
-    """On a host with two cards a CUDA shield's default pool is its own
-    card (serving across cards is ROADMAP item 9d), and a pool naming
-    both cards is refused by ``scale_mesh`` before its ``mesh_heal``
-    record is written: nothing is journaled or adopted, so a later
-    recovery replays no refused heal."""
+    """On a host with two cards a CUDA shield's default pool is every
+    card (as JAX's ``jax.devices()``), and the survivor mesh over that
+    pool plans a two-card D' without adopting it: nothing is journaled
+    or adopted by the plan, so a later recovery replays no heal."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
     fake = SimpleNamespace(_pool=None, scorer=SimpleNamespace(
         device=torch.device("cuda", 1)))
-    assert ShieldedScorer.pool.fget(fake) == [torch.device("cuda", 1)]
+    assert ShieldedScorer.pool.fget(fake) == cards
     got = M.run(tmp_path, shards=1, close=False, events=40)
     sh = got.shield
     try:
         s = sh.scorer
-        sh._pool = [torch.device("cuda", 0), torch.device("cuda", 1)]
-        with pytest.raises(NotImplementedError, match="9d"):
-            sh.scale_mesh(2)
+        sh._pool = list(cards)
+        mesh = sh._survivor_mesh(2, ())
+        assert mesh.shape == {"dp": 1, "graph": 2}
+        assert list(mesh.devices.ravel()) == cards
+        assert mesh.pool_index.ravel().tolist() == [0, 1]
+        with pytest.raises(RuntimeError, match="no survivor mesh"):
+            sh._survivor_mesh(2, (0,))
         batches, _torn = sh.journal.read()
         assert not [b for b in batches if b.kind == "mesh_heal"]
         assert (s.mesh, sh._heal_gen, sh.scale_events) == (None, 0, 0)

@@ -206,15 +206,16 @@ def test_ensure_host_devices_and_serving_mesh():
                                                          "graph": 2}
     with pytest.raises(ValueError):
         pmesh.make_mesh(3, 3, ["cpu"] * 8)
-    # positions may repeat one card, but a serving mesh over two cards
-    # waits for item 9d (the scorer refuses it before touching a device)
-    one = pmesh.make_mesh(1, 2, [torch.device("cuda", 0)] * 2)
-    assert pmesh.check_one_card(one) is one
-    two = pmesh.make_mesh(1, 2, [torch.device("cuda", i) for i in (0, 1)])
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        pmesh.check_one_card(two)
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        StreamingScorer(None, load_settings(), device="cpu", mesh=two)
+    # positions may repeat one card or span two: both builders make a
+    # (1 x 2) mesh over cuda:0 and cuda:1 (nothing touches a device)
+    cards = [torch.device("cuda", i) for i in (0, 1)]
+    one = pmesh.make_mesh(1, 2, [cards[0]] * 2)
+    assert list(one.devices.ravel()) == [cards[0]] * 2
+    for two in (pmesh.make_mesh(1, 2, cards),
+                pmesh.serving_mesh(2, devices=cards, strict=True)):
+        assert two.shape == {"dp": 1, "graph": 2}
+        assert list(two.devices.ravel()) == cards
+        assert two.pool_index.ravel().tolist() == [0, 1]
 
 
 def test_serve_graph_shards_unavailable_falls_back_single_device(caplog):
@@ -262,13 +263,13 @@ def test_pack_at_two_shards_bit_parity_with_singles_and_jax():
 def test_worker_serves_rules_on_a_mesh_and_refuses_what_waits():
     """The worker builds its mesh from the pool for the rules backend
     (JAX workflow/worker.py:184) and for the learned scorer (:161), with
-    the shield and the elastic controller too; what waits (9d) is a mesh
-    over several cards."""
+    the shield and the elastic controller too; the settings' mesh over a
+    pool of two cards spans both (JAX builds it from ``jax.devices()``)."""
     from kubernetes_aiops_evidence_graph_tpu_torch.simulator import (
         generate_cluster)
     from kubernetes_aiops_evidence_graph_tpu_torch.storage import Database
     from kubernetes_aiops_evidence_graph_tpu_torch.workflow.worker import (
-        IncidentWorker, check_ported)
+        IncidentWorker)
     cluster = generate_cluster(num_pods=40, seed=1)
     for over, shape in ((dict(mesh_dp=2), {"dp": 2}),
                         (dict(serve_graph_shards=2), {"dp": 1, "graph": 2}),
@@ -282,7 +283,6 @@ def test_worker_serves_rules_on_a_mesh_and_refuses_what_waits():
         assert scorer._sharded(scorer.snapshot.padded_incidents)
     # the learned scorer serves on the worker's (1 x 2) mesh
     gnn_cfg = load_settings(rca_backend="gnn", serve_graph_shards=2)
-    check_ported(gnn_cfg)
     scorer = IncidentWorker(cluster, Database(":memory:"), settings=gnn_cfg,
                             device="cpu").serving_scorer()
     assert scorer.mesh is not None and scorer.mesh.shape == {"dp": 1,
@@ -298,7 +298,6 @@ def test_worker_serves_rules_on_a_mesh_and_refuses_what_waits():
                       serve_graph_shards=2)):
         cfg = load_settings(shield_dir=tempfile.mkdtemp(
             prefix="kaeg-mesh-shield-"), **over)
-        check_ported(cfg, "cpu")
         worker = IncidentWorker(cluster, Database(":memory:"), settings=cfg,
                                 device="cpu")
         scorer = worker.serving_scorer()
@@ -310,15 +309,22 @@ def test_worker_serves_rules_on_a_mesh_and_refuses_what_waits():
                 scorer.live_incidents()[0])
         finally:
             worker.close()
-    # the default CUDA pool over two cards would spread the mesh: 9d
-    import kubernetes_aiops_evidence_graph_tpu_torch.workflow.worker as wm
+    # the default CUDA pool over two cards: the settings' mesh spans both
+    # (built without touching a device), and a shape the pool cannot
+    # carry falls back to one device, logged
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(wm.torch.cuda, "is_available", lambda: True)
-        mp.setattr(wm.torch.cuda, "device_count", lambda: 2)
-        with pytest.raises(NotImplementedError, match="item 9d"):
-            check_ported(load_settings(serve_graph_shards=2))
-        check_ported(load_settings(serve_graph_shards=4))
-        check_ported(load_settings(serve_graph_shards=2), "cpu")
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        mp.setattr(torch.cuda, "device_count", lambda: 2)
+        mesh = pmesh.settings_mesh(load_settings(serve_graph_shards=2),
+                                   "cuda")
+        assert mesh.shape == {"dp": 1, "graph": 2}
+        assert list(mesh.devices.ravel()) == [torch.device("cuda", i)
+                                              for i in (0, 1)]
+        dp = pmesh.settings_mesh(load_settings(mesh_dp=2), "cuda")
+        assert list(dp.devices.ravel()) == [torch.device("cuda", i)
+                                            for i in (0, 1)]
+        assert pmesh.settings_mesh(load_settings(serve_graph_shards=4),
+                                   "cuda") is None
 
 
 def test_sharded_tick_priced_with_its_sum_and_routing_recorded():
