@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py [--package-dir DIR] [--state-dir DIR]
     python3 chip_smoke.py [--package-dir DIR] --mesh-ticks
+    python3 chip_smoke.py [--package-dir DIR] --audit [warn]
 
 (``--package-dir`` drives the port's package of another tree, for example
 an unpacked parent commit, with this script's phases: two trees compared
 on one card, one run after the other. ``--state-dir`` makes those runs
 hash the digested kernels' outputs on the same saved inputs.
 ``--mesh-ticks`` runs nothing but the host ms a config-4 mesh tick of
-rules and learned scorers at D 1, 2 and 4, one JSON line.)
+rules and learned scorers at D 1, 2 and 4, one JSON line. ``--audit``
+runs nothing but phase 23 and prints its line; ``--audit warn`` records
+each device->host sync's Python line in the tiers' dispatch, and the
+static findings, instead of failing at the first.)
 
 Drives ``kubernetes_aiops_evidence_graph_tpu_torch`` on the card, both RCA
 paths: the rules path (``rca_backend="tpu"``, kernel ``rules_fold``) and
@@ -295,7 +299,23 @@ the learned model's training, offline (``rca/train.py``) and online
    leg is reported as not run. Then the host ms a mesh tick of phases 19
    and 20 and the device ms of a (1 x 4) rules tick with its partial
    folds' overlap; a ``{"cards": {...}}`` line;
-23. prints a ``{"gms_compare": {...}}`` line (the message pass split by
+23. the reference's audit on the port (ROADMAP 10b,
+   ``run_audit_phase``): the port's static audit
+   (``kubernetes_aiops_evidence_graph_tpu_torch.analysis``) over this
+   checkout with zero unwaived findings; on a config-4 world the rules
+   scorer and the learned scorer on the composed, fused, streamed and
+   streamed-int8 tiers in turn, each with a first ``rescore()``, then 21
+   churn ticks of 100 events whose ``dispatch()`` runs under
+   ``no_implicit_syncs()`` (zero device->host syncs), a ``BuildFence``
+   armed after the first tick (zero kernel builds or loads, the final
+   ``rescore()`` included), every resident tensor's ``data_ptr()`` the
+   same after each tick, and the final verdicts equal to a fresh rebuild;
+   then a 2,000-pod learned app of 20 webhooks with the learner and the
+   shield on under ``LockOrderGuard`` (no cycle); a ``{"audit": {...}}``
+   line with the finding and waiver counts, the syncs by tier, the builds
+   after arming, the pointer checks, the guard's edges and the phase's
+   seconds;
+24. prints a ``{"gms_compare": {...}}`` line (the message pass split by
    kernel at config 3, forward and dh, and config 4; the hub probe; the
    learned forward, the train step, the ticks per tier, each split by
    kernel, and learned events/s; ``grad_w`` per launch at the trainer's
@@ -6259,6 +6279,274 @@ def run_cards(dev, package_dir: str, mesh_run: dict, mesh_learned: dict
     return res
 
 
+
+# -- phase 23: the reference's audit on the port (ROADMAP item 10b) -------
+
+AUDIT_FLAG = "--audit"
+AUDIT_TIERS = ("rules", "composed", "fused", "dma", "dma_int8")
+"""The scorers phase 23 drives under the sync guard: the rules scorer
+(B1) and the learned scorer on each tier of ``LEARNED_TIERS``."""
+
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+"""The warning ``set_sync_debug_mode("warn")`` gives at a sync (its
+"prototype feature" notice, given once, is not a sync)."""
+
+
+def sync_site() -> str:
+    """Where a sync warned: the innermost frame of the port's package on
+    the stack, and the innermost frame of all."""
+    import traceback
+    stack = traceback.extract_stack()[:-2]
+    port = [f for f in stack
+            if "kubernetes_aiops_evidence_graph_tpu_torch" in f.filename]
+    where = (lambda f: f"{f.filename.rsplit('/', 2)[-2]}/"
+             f"{os.path.basename(f.filename)}:{f.lineno} ({f.name})")
+    return (where(port[-1]) if port else "?") + " via " + " < ".join(
+        where(f) for f in stack[-6:][::-1])
+
+
+def audit_tier(tier: str, settings, cluster, builder, fence, ticks: int,
+               batch: int, seed: int, sync_mode: str) -> dict:
+    """One scorer of ``tier`` on the config-4 world: a first ``rescore()``
+    (builds, loads and first launches), the fence armed, then ``ticks``
+    churn ticks of ``batch`` events, each tick's ``dispatch()`` under the
+    sync guard (events applied outside it), the resident pointers compared
+    after every tick, a final ``rescore()`` (the fetch seam) still fenced,
+    and its verdicts held to a fresh rebuild. ``sync_mode`` "error" (the
+    phase) raises at the first sync; "warn" records every sync's Python
+    line instead (a probe)."""
+    import warnings
+
+    import torch
+    from kubernetes_aiops_evidence_graph_tpu_torch.analysis.runtime_guards \
+        import no_implicit_syncs, resident_pointers
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
+        GnnStreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.streaming import (
+        StreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        churn_events, stream_step)
+
+    now_s = cluster.now.timestamp()
+    if tier == "rules":
+        def make():
+            return StreamingScorer(builder.store, settings)
+    else:
+        tier_settings = dataclasses.replace(settings, **LEARNED_TIERS[tier])
+
+        def make():
+            return GnnStreamingScorer(builder.store, tier_settings,
+                                      now_s=now_s)
+    scorer = make()
+    scorer.rescore()
+    stream = list(churn_events(
+        cluster, ticks * batch, seed=seed,
+        incident_ids=tuple(builder.store.incident_ids())))
+    b0, l0 = fence.builds, fence.loads
+    fence.arm()
+    ptrs = resident_pointers(scorer)
+    rebuilds = scorer.rebuilds
+    checks, moved, syncs, host_s = 0, 0, [], []
+    for t in range(ticks):
+        for ev in stream[t * batch:(t + 1) * batch]:
+            stream_step(cluster, builder.store, scorer, ev)
+        t1 = time.perf_counter()
+        if sync_mode == "error":
+            with no_implicit_syncs():
+                scorer.dispatch()
+        else:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = (
+                    lambda message, *_a, **_k: syncs.append(sync_site())
+                    if SYNC_WARNING in str(message) else None)
+                before = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    scorer.dispatch()
+                finally:
+                    torch.cuda.set_sync_debug_mode(before)
+        host_s.append(time.perf_counter() - t1)
+        now = resident_pointers(scorer)
+        if scorer.rebuilds != rebuilds:
+            # a rebuild re-tensorizes the store: new tensors on purpose
+            moved += 1
+            rebuilds = scorer.rebuilds
+        elif now != ptrs:
+            raise AssertionError(
+                f"audit {tier}: tick {t} reallocated resident tensors "
+                f"{sorted(k for k in now if now[k] != ptrs.get(k))} "
+                "without a rebuild")
+        else:
+            checks += 1
+        ptrs = now
+    final = scorer.rescore()
+    fence.disarm()
+    fence.assert_clean()
+    fresh = make().rescore()
+    if tier == "rules":
+        n_live = same_verdicts(final, fresh, f"audit {tier}")
+    else:
+        if not np.isfinite(final["probs"]).all():
+            raise AssertionError(f"audit {tier}: non-finite probs")
+        n_live, _ = same_learned_verdicts(
+            final, fresh, f"audit {tier}",
+            QUANT_TOL.get(tier_settings.gnn_feature_quant))
+    return {"syncs": len(syncs), "sync_sites": sorted(set(syncs)),
+            "builds_after_arming": fence.builds - b0,
+            "loads_after_arming": fence.loads - l0,
+            "pointer_checks": checks, "rebuilds": moved,
+            "dispatch_host_ms_p50": statistics.median(host_s) * 1e3,
+            "ticks": ticks, "incidents": n_live}
+
+
+def learner_cycle(app, base: str, wait_s: float = 60.0) -> dict:
+    """One learner cycle, run synchronously on the served app once its
+    incidents are closed (the learner's own loop waits out its interval):
+    harvest, fine-tune, gate and, if the gate passes, the shielded swap."""
+    t0 = time.perf_counter()
+    while app.learner is None:
+        if time.perf_counter() - t0 > wait_s:
+            raise AssertionError("audit app: the learner did not start")
+        time.sleep(0.05)
+    return app.learner.run_once()
+
+
+def audit_mesh_ticks(dev, settings, cluster, builder, seed: int,
+                     ticks: int = 5, batch: int = 100) -> dict:
+    """A learned (1 x 2) mesh of positions on the card serving the phase's
+    config-4 store: a first ``rescore()``, ``ticks`` churn ticks through
+    ``tick_async``, a final ``rescore()`` with finite probs (run under
+    ``LockOrderGuard``: the position streams' table lock and the
+    scorer's locks, made after the guard's install)."""
+    from kubernetes_aiops_evidence_graph_tpu_torch.parallel import (
+        serving_mesh)
+    from kubernetes_aiops_evidence_graph_tpu_torch.rca.gnn_streaming import (
+        GnnStreamingScorer)
+    from kubernetes_aiops_evidence_graph_tpu_torch.simulator.stream import (
+        churn_events, stream_step)
+    scorer = GnnStreamingScorer(
+        builder.store, settings, now_s=cluster.now.timestamp(), device=dev,
+        mesh=serving_mesh(2, devices=[dev] * 2, strict=True),
+        mesh_from_settings=False)
+    scorer.rescore()
+    stream = list(churn_events(
+        cluster, ticks * batch, seed=seed,
+        incident_ids=tuple(builder.store.incident_ids())))
+    for t in range(ticks):
+        for ev in stream[t * batch:(t + 1) * batch]:
+            stream_step(cluster, builder.store, scorer, ev)
+        scorer.tick_async()
+    out = scorer.rescore()
+    if not np.isfinite(out["probs"]).all():
+        raise AssertionError("audit mesh: non-finite probs")
+    return {"ticks": ticks, "incidents": len(out["incident_ids"]),
+            "sharded": bool(scorer._mirror_sharded)}
+
+
+def run_audit_phase(dev, num_pods: int = 10_000, num_incidents: int = 100,
+                    ticks: int = 21, batch: int = 100, seed: int = 0,
+                    sync_mode: str = "error", app: bool = True) -> dict:
+    """Phase 23 (ROADMAP 10b): the port's own audit, on the card. The
+    static passes over this checkout (zero unwaived findings); then on a
+    config-4 world each tier of :data:`AUDIT_TIERS` in turn
+    (:func:`audit_tier`: zero device->host syncs in ``dispatch``, zero
+    kernel builds or loads after the first tick, resident pointers
+    stable); then a small learned app with the learner and the shield on
+    under ``LockOrderGuard`` (a clean guard), one learner cycle run on it
+    once its incidents are closed. Launches are counted over the tiers and
+    the app."""
+    import tempfile
+
+    from kubernetes_aiops_evidence_graph_tpu_torch.analysis import (
+        run_audit as static_audit)
+    from kubernetes_aiops_evidence_graph_tpu_torch.analysis.runtime_guards \
+        import BuildFence, LockOrderGuard
+    from kubernetes_aiops_evidence_graph_tpu_torch.analysis.sentinel import (
+        collect_waivers)
+
+    t_phase = time.perf_counter()
+    report = static_audit()
+    waivers = collect_waivers()
+    # a "warn" probe (of another tree, too) reports what it finds
+    if sync_mode == "error" and report.violations:
+        raise AssertionError("audit: unwaived findings:\n"
+                             + report.to_text())
+    if sync_mode == "error" and any(not w["reason"] for w in waivers):
+        raise AssertionError("audit: a waiver without a reason")
+    static_s = time.perf_counter() - t_phase
+    settings, cluster, builder, _ = streaming_world(num_pods, num_incidents,
+                                                    seed)
+
+    def counts() -> dict:
+        return {**read_counts(), **split_counts()}
+
+    tiers = {}
+    reset_counts()
+    with BuildFence() as fence:
+        for i, tier in enumerate(AUDIT_TIERS):
+            tiers[tier] = audit_tier(tier, settings, cluster, builder, fence,
+                                     ticks, batch, seed + 1 + i, sync_mode)
+            log(f"audit {tier}: {tiers[tier]}")
+    launches = counts()
+    guard = mesh_guard = mesh = None
+    if app:
+        reset_counts()
+        with tempfile.TemporaryDirectory(prefix="kaeg-audit-app-") as d:
+            with LockOrderGuard() as guard:
+                app_run = run_app("gnn", dev, num_pods=2_000,
+                                  num_incidents=20, batch=10,
+                                  after=learner_cycle, learn_enabled=True,
+                                  learn_steps=20, learn_min_episodes=1,
+                                  shield_enabled=True,
+                                  shield_dir=d)
+        guard.assert_clean()
+        if app_run["shield"]["tier_log"] or app_run["shield"]["recoveries"]:
+            raise AssertionError(f"audit app: {app_run['shield']}")
+        launches = {k: launches[k] + n for k, n in counts().items()}
+        # the app's run was clean: a (1 x 2) learned mesh under a guard
+        # of its own
+        reset_counts()
+        with LockOrderGuard() as mesh_guard:
+            mesh = audit_mesh_ticks(dev, settings, cluster, builder,
+                                    seed + 1 + len(AUDIT_TIERS))
+        mesh_guard.assert_clean()
+        launches = {k: launches[k] + n for k, n in counts().items()}
+    res = {
+        "findings": len(report.findings),
+        "violations": len(report.violations),
+        "waived": len(report.waivers), "waivers": len(waivers),
+        "static_s": static_s,
+        "syncs_by_tier": {t: r["syncs"] for t, r in tiers.items()},
+        "sync_sites": {t: r["sync_sites"] for t, r in tiers.items()
+                       if r["sync_sites"]},
+        "builds_after_arming": sum(r["builds_after_arming"]
+                                   for r in tiers.values()),
+        "loads_after_arming": sum(r["loads_after_arming"]
+                                  for r in tiers.values()),
+        "pointer_checks": {t: r["pointer_checks"] for t, r in tiers.items()},
+        "rebuilds": {t: r["rebuilds"] for t, r in tiers.items()},
+        "dispatch_host_ms_p50": {t: r["dispatch_host_ms_p50"]
+                                 for t, r in tiers.items()},
+        "ticks_per_tier": ticks, "events_per_tick": batch,
+        "guard_edges": None if guard is None else guard.edges,
+        "mesh_guard_edges": None if mesh_guard is None else mesh_guard.edges,
+        "mesh_ticks": mesh,
+        "learner_cycle": None if guard is None else {
+            k: app_run["after"].get(k) for k in (
+                "trained", "swapped", "generation", "train_steps")},
+        "guard_violations": None if guard is None else len(
+            guard.violations) + len(mesh_guard.violations),
+        "launches": launches,
+        "sync_mode": sync_mode,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    if sync_mode == "error" and any(res["syncs_by_tier"].values()):
+        raise AssertionError(f"audit: syncs {res['sync_sites']}")
+    return res
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -6275,6 +6563,10 @@ def main(argv: list[str]) -> int:
     ap.add_argument(CARDS_CONTROL_FLAG, dest="cards_control",
                     action="store_true", help="run phase 22's control alone "
                     "and print its record (the smoke starts it itself)")
+    ap.add_argument(AUDIT_FLAG, dest="audit", nargs="?", const="error",
+                    choices=("error", "warn"), help="only build the kernels "
+                    "and run phase 23 (the audit) and print its line; "
+                    "'warn' records every sync's line instead of failing")
     ap.add_argument(MESH_TICKS_FLAG, dest="mesh_ticks", action="store_true",
                     help="only time host ms a mesh tick of the package "
                     "(rules and learned at D 1, 2 and 4) and print it")
@@ -6320,6 +6612,11 @@ def main(argv: list[str]) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if opts.audit:
+        _build.build_all()
+        print(json.dumps({"audit": {"card": smi, **run_audit_phase(
+            dev, sync_mode=opts.audit)}}, default=str))
+        return 0
 
     # -- 2. build --------------------------------------------------------
     report = _build.build_all()
@@ -6559,6 +6856,15 @@ def main(argv: list[str]) -> int:
     learned_paths["cards"] = cards["probe"]["launches"]
     rules_learned["cards"] = cards["probe"]["launches"]["rules_fold"]
     split_paths["cards"] = cards["probe"]["launches"]
+
+    # -- 23. the reference's audit on the port: the static passes over this
+    # checkout, the sync guard, the build fence and the resident pointers
+    # over config-4 churn on every tier, the lock-order witness over a
+    # learned app with the learner and the shield ----------------------
+    audit = run_audit_phase(dev)
+    learned_paths["audit"] = audit["launches"]
+    rules_learned["audit"] = audit["launches"]["rules_fold"]
+    split_paths["audit"] = audit["launches"]
 
     kernels = [{
         "name": "rules_fold", "route": "cuda",
@@ -6943,6 +7249,7 @@ def main(argv: list[str]) -> int:
         "learner": mesh_learner}}, default=str))
     print(json.dumps({"mesh_heal": {"card": smi, **heal_run}}, default=str))
     print(json.dumps({"cards": {"card": smi, **cards}}, default=str))
+    print(json.dumps({"audit": {"card": smi, **audit}}, default=str))
     print(json.dumps({"cli": {"card": smi, **cli_run}}))
     print(json.dumps({"blast": {"card": smi, **blast}}))
     print(json.dumps({"live": {"card": smi, **live}}))

@@ -303,7 +303,7 @@ class OnlineLearner:
         while not self._stop.is_set():
             try:
                 self.run_once()
-            except Exception:  # one failed cycle must not kill the loop; serving is untouched
+            except Exception:  # graft-audit: allow[broad-except] per-cycle isolation: one failed learn cycle must not kill the loop thread; serving is untouched (candidates only reach it through the gate)
                 log.exception("learn cycle failed")
             self._stop.wait(interval)
         self.running = False

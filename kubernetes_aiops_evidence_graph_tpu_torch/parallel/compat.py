@@ -479,6 +479,7 @@ def _gather_rows(rows: list, row_ranks: np.ndarray) -> list:
     gloo group, on the rows' card on NCCL."""
     local = torch.stack(rows)
     via_host = dist.get_backend() == "gloo" and local.device.type != "cpu"
+    # graft-audit: allow[host-sync] gloo moves host tensors only: a CUDA position's rows cross the host on a gloo group (the NCCL path, via_host False, sends them from the card); JAX's psum has no host-driven counterpart
     send = local.cpu() if via_host else local
     counts = np.bincount(row_ranks, minlength=dist.get_world_size())
     bufs = [torch.empty((int(c),) + tuple(send.shape[1:]), dtype=send.dtype,

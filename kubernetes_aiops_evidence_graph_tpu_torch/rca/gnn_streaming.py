@@ -100,6 +100,23 @@ def copy_mirror_delta(ints, pk: int, ek: int, f_live: int, e_live: int,
             resident.index_copy_(0, slots, delta[:e_live].to(resident.dtype))
 
 
+def _as_words(a: np.ndarray) -> np.ndarray:
+    """A host array's bytes as int32 words, zero-padded to a whole word:
+    the form in which a payload rides the int32 staging slab."""
+    b = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    pad = (-b.size) % 4
+    if pad:
+        b = np.concatenate([b, np.zeros(pad, np.uint8)])
+    return b.view(np.int32)
+
+
+def _from_words(words: torch.Tensor, like: np.ndarray) -> torch.Tensor:
+    """The inverse of :func:`_as_words` on the device: the int32 ``words``
+    viewed (no copy) as an array of ``like``'s dtype and shape."""
+    dtype = torch.from_numpy(like[:0]).dtype
+    return words.view(dtype)[:like.size].view(like.shape)
+
+
 def _gnn_tick(params, features, kind, nmask, esrc, edst, erel, emask, ints,
               pk: int, ek: int, pi: int, f_live: int, e_live: int,
               rel_offsets: tuple[int, ...], compute_dtype=None) -> tuple:
@@ -215,9 +232,9 @@ class GnnStreamingScorer(StreamingScorer):
         self._features_q_dev: "torch.Tensor | None" = None
         self._feat_scale_dev: "torch.Tensor | None" = None
         self._feat_scale_host: "np.ndarray | None" = None
-        # this dispatch's quantized delta rows, staged by dispatch() and
-        # consumed by _dispatch_dma
-        self._dma_stage_fq: "np.ndarray | None" = None
+        # this dispatch's quantized delta rows on the device (a view of
+        # the staged slab), set by dispatch() and consumed by _dispatch_dma
+        self._dma_stage_fq: "torch.Tensor | None" = None
         # the packed GNN delta the staged slab carries this dispatch
         self._gnn_stage: "np.ndarray | None" = None
         self._last_gnn: "tuple | None" = None
@@ -688,8 +705,7 @@ class GnnStreamingScorer(StreamingScorer):
             return _gnn_dma_tick(*args, *self._dma_h, pk, ek, pi, offs,
                                  node_block=nb,
                                  compute_dtype=self._compute_dtype)
-        fq_rows = self._upload(self._dma_stage_fq).to(
-            self._features_q_dev.dtype)
+        fq_rows = self._dma_stage_fq.to(self._features_q_dev.dtype)
         self._dma_stage_fq = None
         return _gnn_dma_tick_q(params, self._features_q_dev, *args[2:],
                                *self._dma_h, fq_rows, self._feat_scale_dev,
@@ -774,21 +790,28 @@ class GnnStreamingScorer(StreamingScorer):
         if self._mirror_sharded:
             return self._dispatch_sharded(list(aux_rows))
         ints, pk, ek, f_live, e_live = self._packed_gnn_delta(aux_rows)
-        if self._feat_quant:
-            self._dma_stage_fq = self._quant_rows(aux_rows, pk)
-        self._gnn_stage = ints
+        # a quant tier's delta rows ride the same slab, after the ints
+        fq = self._quant_rows(aux_rows, pk) if self._feat_quant else None
+        self._gnn_stage = ints if fq is None else np.concatenate(
+            [ints, _as_words(fq)])
         try:
             out = super().dispatch()
         finally:
             self._gnn_stage = None
         span = self._last_tick_span   # opened by the base dispatch
-        ints_dev, self._staged_gnn_dev = self._staged_gnn_dev, None
+        staged, self._staged_gnn_dev = self._staged_gnn_dev, None
         features = self._features_dev
         with self._on_stream():
-            if ints_dev is None:
+            if staged is None:
                 # a base tick on a mesh stages no extra payload: the GNN
-                # delta pays its own copy
+                # delta (and a quant tier's rows) pay their own copies
                 ints_dev = self._upload(ints)
+                fq_dev = None if fq is None else self._upload(fq)
+            else:
+                ints_dev = staged[:ints.size]
+                fq_dev = None if fq is None else _from_words(
+                    staged[ints.size:], fq)
+            self._dma_stage_fq = fq_dev
             if not isinstance(features, torch.Tensor):
                 # the base features replicated over a mesh the mirror does
                 # not shard over: every block is the whole table

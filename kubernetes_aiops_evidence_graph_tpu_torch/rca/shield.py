@@ -391,6 +391,7 @@ class ShieldedScorer:
             prev = getattr(s, "_params_prev", None)
             if prev is None:
                 return None
+            # graft-audit: allow[wal-order] rollback applies FIRST so the journal records the exact restored leaves as a fresh swap record; crash in the gap replays the pre-rollback swap, and the nonfinite backstop that triggered us re-fires
             gen = s.rollback_params()
             if gen is None:
                 return None
@@ -811,6 +812,7 @@ class ShieldedScorer:
         cooled down, grow D' back to the home mesh. The probe IS the next
         guarded tick: a clean pass closes the probing breakers; one more
         shard-localized failure re-opens and re-heals at once."""
+        # graft-audit: allow[lock-guard] advisory half-open gate: reexpand() re-checks _mesh_excluded under serve_lock; a stale read only delays the probe by one tick
         if (self._mesh_excluded and self._heal_enabled()
                 and self.health.can_reexpand()):
             self.reexpand()
@@ -1080,8 +1082,9 @@ class ShieldedScorer:
                  # compaction drops only the heal records this snapshot
                  # already reflects (the params_swap discipline)
                  "mesh_shards": int(mesh_shards),
+                 # graft-audit: allow[lock-guard] snapshot capture is serialized against heals/reexpands by the shield _lock, so the triple below is consistent
                  "mesh_exclude": tuple(self._mesh_excluded),
-                 "mesh_home": int(self._mesh_home),
+                 "mesh_home": int(self._mesh_home),  # graft-audit: allow[lock-guard] same shield-_lock serialization argument as mesh_exclude above
                  "heal_gen": int(self._heal_gen)}
         self.snapshots += 1
         self._ticks_since_snapshot = 0
@@ -1263,6 +1266,7 @@ class ShieldedScorer:
             "heals": self.heals,
             "reexpansions": self.reexpansions,
             "scale_events": self.scale_events,
+            # graft-audit: allow[lock-guard] monitoring read: a tuple swap is atomic under the GIL and staleness is acceptable in stats output
             "mesh_excluded": self._mesh_excluded,
             "serving_shards": self.scorer._graph_size(),
             "shard_health": self.health.stats(),

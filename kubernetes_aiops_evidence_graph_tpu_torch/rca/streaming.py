@@ -261,6 +261,7 @@ class _SlabPool:
         slabs, nxt = self._pools.get(n, ([], 0))
         if len(slabs) < self.copies:
             host = torch.zeros(n, dtype=torch.int32, pin_memory=self.pin)
+            # graft-audit: allow[host-sync] a numpy view of the pinned HOST slab: no device copy, no sync
             slab = _Slab(host, host.numpy())
             slabs.append(slab)
             self._pools[n] = (slabs, 0)
@@ -271,6 +272,7 @@ class _SlabPool:
             if not all(ev.query() for ev in slab.done):
                 self.waits += 1
             for ev in slab.done:
+                # graft-audit: allow[host-sync] waits for the host->device upload that last read this slab before rewriting it (never a readback); rotating copies keep it off the steady state and the pool counts each wait
                 ev.synchronize()
         return slab
 

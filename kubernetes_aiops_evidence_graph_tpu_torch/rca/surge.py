@@ -748,6 +748,7 @@ def swap_tenants_atomically(targets, params, source: str = "") -> int:
                 journal.append((), seq, seq, kind="params_swap",
                                force_sync=True, generation=gen,
                                leaves=leaves, source=source)
+            # graft-audit: allow[wal-order] unshielded tenants have no journal to write; shielded tenants journaled in the branch above before this locked install
             scorer._swap_params_locked(params, gen, source=source)
     obs_metrics.LEARN_SWAPS.inc()
     obs_scope.FLIGHT_RECORDER.note_event(

@@ -296,8 +296,10 @@ def train(episodes: int = 8, steps: int = 200,
         params, opt_state, loss = step(params, opt_state, train_dev[i],
                                        rel_offsets=train_offsets[i])
         if s % max(steps // 10, 1) == 0 or s == steps - 1:
+            # graft-audit: allow[host-sync] the history samples the loss at 11 of the steps, as the JAX trainer does (float(loss) in its loop)
             history.append({"step": s, "loss": float(loss)})
             if verbose:
+                # graft-audit: allow[host-sync] verbose progress prints the sampled loss (the JAX trainer's print)
                 print(f"step {s:5d} loss {float(loss):.4f}", file=sys.stderr)
     params = gnn.unflat_params({k: v.detach()
                                 for k, v in gnn.flat_params(params).items()})
